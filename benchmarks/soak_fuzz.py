@@ -35,13 +35,14 @@ import jax  # noqa: E402
 
 jax.config.update('jax_platforms', 'cpu')
 jax.config.update('jax_enable_x64', True)
-_cache = os.environ.get(
-    'RRI_NMF_TEST_CACHE',
-    os.path.join(tempfile.gettempdir(), 'rri_nmf_tpu_test_jax_cache'))
-if _cache:
-    jax.config.update('jax_compilation_cache_dir', _cache)
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.5)
-    jax.config.update('jax_persistent_cache_min_entry_size_bytes', 0)
+# the suite's compile cache (tests/conftest.py): JAX_COMPILATION_CACHE_DIR
+# when set, else the fixed in-repo .cache/jax_compile
+_cache = os.environ.get('JAX_COMPILATION_CACHE_DIR') or os.path.join(
+    os.path.abspath(os.path.join(os.path.dirname(__file__), '..')),
+    '.cache', 'jax_compile')
+jax.config.update('jax_compilation_cache_dir', _cache)
+jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.5)
+jax.config.update('jax_persistent_cache_min_entry_size_bytes', 0)
 
 _root = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 sys.path.insert(0, os.path.join(_root, 'tests'))

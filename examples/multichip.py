@@ -1,6 +1,7 @@
 """Multi-chip sharded factorization over a (dp, tp) device mesh.
 
-Without TPU pod hardware, emulate 8 devices on CPU:
+On a host with several GPUs the mesh spans them all. Without them,
+emulate 8 devices on CPU:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip.py --cpu
 """

@@ -1,12 +1,14 @@
 """Multi-controller (multi-host) factorization: one process per host.
 
-On a TPU pod, launch this script once per worker with no arguments —
-``initialize_distributed()`` autodetects the pod and every process sees
-the global device set. Each process loads ONLY its own row block of X
+Launch this script once per process as
+``python examples/multiprocess.py <process_id> <num_processes> <port>``
+(the coordinator listens on ``localhost:<port>``, so all processes share
+one machine, e.g. one per GPU); every process then sees the global
+device set. Each process loads ONLY its own row block of X
 (no host ever materializes the full matrix), and every process receives
 the same gathered factors back.
 
-Without pod hardware, emulate a 2-process group on CPU (two terminals,
+Without GPUs, emulate a 2-process group on CPU (two terminals,
 or let the script self-spawn):
 
     python examples/multiprocess.py --spawn-cpu
@@ -35,16 +37,13 @@ def load_row_block(lo, hi):
 
 def main():
     import jax
-    if os.environ.get('RRI_NMF_EXAMPLE_CPU'):
-        jax.config.update('jax_platforms', 'cpu')
 
     from rri_nmf_tpu.nmf import nmf
     from rri_nmf_tpu.parallel import (
         distribute_dense, initialize_distributed, make_global_mesh,
         process_row_block)
 
-    # on a pod this autodetects; the CPU emulation passes the group
-    # explicitly through argv
+    # the process group comes from argv (nothing is autodetected)
     if len(sys.argv) > 3:
         pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
         initialize_distributed('localhost:' + port, nproc, pid)
@@ -54,8 +53,8 @@ def main():
           % (jax.process_index(), jax.process_count(),
              len(jax.local_devices()), len(jax.devices())))
 
-    # dp across hosts (only the small T-phase numerator crosses DCN),
-    # tp within a host
+    # dp across hosts (only the small T-phase numerator crosses the
+    # network), tp within a host
     mesh = make_global_mesh()
     lo, hi = process_row_block(N, mesh)
     Xg = distribute_dense(load_row_block(lo, hi), (N, D), mesh)
@@ -74,8 +73,8 @@ def main():
 
     # ---- sparse corpora: each process contributes its slab as a COO
     # plan passed DIRECTLY as X (the corpus never exists on one host).
-    # backend='mxu' builds the one-hot MXU chunk plans instead; masked
-    # observed sets go through distribute_masked_coo the same way.
+    # Masked observed sets go through distribute_masked_coo the same
+    # way.
     import scipy.sparse as sp
 
     from rri_nmf_tpu.parallel import (distribute_factors,
@@ -108,8 +107,7 @@ def spawn_cpu():
     s.close()
     env = dict(os.environ,
                XLA_FLAGS='--xla_force_host_platform_device_count=4',
-               RRI_NMF_EXAMPLE_CPU='1')
-    env.pop('JAX_PLATFORMS', None)
+               JAX_PLATFORMS='cpu')
     procs = [subprocess.Popen(
         [sys.executable, __file__, str(i), '2', port], env=env)
         for i in range(2)]

@@ -1,4 +1,4 @@
-"""TPU-native Non-negative Matrix Factorization by Rank-one Residue Iterations.
+"""Non-negative Matrix Factorization by Rank-one Residue Iterations in JAX.
 
 A from-scratch JAX/XLA/Pallas/pjit implementation with the capabilities of the
 reference library ``maksimt/rri_nmf`` (see /root/reference): RRI (Ho's thesis

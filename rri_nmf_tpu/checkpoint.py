@@ -5,17 +5,21 @@ via ``W_in``/``T_in`` warm starts and estimator-held factors (reference
 ``nmf.py:852-859``, ``sklearn_interface.py:104-112,253-261``, and the
 ``one_iter`` stepping contract pinned by ``tests/test_nmf.py:97-110``).
 Those are preserved exactly in :func:`rri_nmf_tpu.nmf.nmf`. This module
-adds what SURVEY.md §5.4 specifies for the TPU rebuild: orbax
-checkpointing of the full training state — (W, T, iteration, objective
-history, PRNG key, reset budget) — so multi-chip runs recover from
-preemption by restart-from-checkpoint (SURVEY.md §5.3).
+adds what SURVEY.md §5.4 specifies: checkpointing of the full training
+state — (W, T, iteration, objective history, PRNG key, reset budget) — so
+multi-device runs recover from preemption by restart-from-checkpoint
+(SURVEY.md §5.3).
 
-Orbax natively handles sharded ``jax.Array``s: each host writes its own
-shards, and on restore arrays are laid out back onto the mesh via the
-provided shardings.
+Each saved step is one NumPy ``.npz`` file, written under a temporary
+name and renamed into place, so a reader never sees a partial step.
+Sharded factors are gathered to the host on save (process 0 writes) and
+laid back onto the mesh on restore via the provided shardings.
 """
 
 import dataclasses
+import json
+import os
+import re
 from typing import Any, Optional
 
 import jax
@@ -57,8 +61,8 @@ class NMFState:
     es_score: Optional[float] = None
 
     def tree(self):
-        # orbax cannot serialize zero-size arrays: an empty history is
-        # padded with one NaN and its true length stored alongside
+        # an empty history is padded with one NaN and its true length
+        # stored alongside (the tree keeps fixed-rank entries)
         oh = np.asarray(self.obj_history, np.float64)
         if oh.size == 0:
             oh = np.asarray([np.nan], np.float64)
@@ -104,67 +108,103 @@ class NMFState:
                       if 'es_score' in tree else None))
 
 
+_STEP_FILE = re.compile(r'^step_(\d+)\.npz$')
+
+
+def _host(a):
+    """Host copy of a (possibly process-spanning) array."""
+    if isinstance(a, jax.Array) and not a.is_fully_addressable:
+        if a.is_fully_replicated:
+            return np.asarray(a.addressable_data(0))
+        from jax.experimental import multihost_utils
+        return np.asarray(multihost_utils.process_allgather(a, tiled=True))
+    return np.asarray(a)
+
+
 class NMFCheckpointer:
-    """Orbax-backed checkpoint manager for NMF training state.
+    """Checkpoint manager for NMF training state: one ``step_<n>.npz``
+    file per saved step in ``directory``, the newest ``keep`` retained.
 
     Usage::
 
         ckpt = NMFCheckpointer('/path/to/ckpts', keep=3)
-        ckpt.save(step, state)            # async-capable orbax save
+        ckpt.save(step, state)            # synchronous, atomic
         state = ckpt.restore()            # latest, or restore(step)
         soln = nmf(X, k, W_in=state.W, T_in=state.T, ...)  # warm resume
+
+    In a multi-process run every process calls :meth:`save` (sharded
+    arrays are gathered collectively), process 0 writes, and all
+    processes wait for the write before going on; ``directory`` must be
+    visible to every process.
     """
 
     def __init__(self, directory, keep=3):
-        import orbax.checkpoint as ocp
-        self._ocp = ocp
-        self.directory = str(directory)
-        # declare the handler type up front so a FRESH manager over an
-        # existing directory can serve item_metadata() (needed to build
-        # the abstract tree for sharded restores)
-        self.manager = ocp.CheckpointManager(
-            self.directory,
-            options=ocp.CheckpointManagerOptions(max_to_keep=keep,
-                                                 create=True),
-            item_handlers=ocp.StandardCheckpointHandler())
+        self.directory = os.fspath(directory)
+        self.keep = int(keep)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step):
+        return os.path.join(self.directory, 'step_%d.npz' % step)
+
+    def steps(self):
+        """Saved steps, ascending."""
+        return sorted(int(m.group(1)) for m in
+                      map(_STEP_FILE.match, os.listdir(self.directory))
+                      if m)
 
     def save(self, step: int, state: NMFState, wait: bool = False):
-        self.manager.save(step, args=self._ocp.args.StandardSave(
-            state.tree()))
-        if wait:
-            self.manager.wait_until_finished()
+        """Write ``state`` as ``step``. Saves are synchronous; ``wait`` is
+        accepted for callers written against asynchronous managers."""
+        arrays, dtypes = {}, {}
+        for key, value in state.tree().items():
+            a = _host(value)
+            if type(a.dtype).__module__ != 'numpy':
+                # extension dtypes (bfloat16) travel as raw bits
+                dtypes[key] = str(a.dtype)
+                a = a.view('u%d' % a.dtype.itemsize)
+            arrays[key] = a
+        arrays['__dtypes__'] = np.asarray(json.dumps(dtypes))
+        if jax.process_index() == 0:
+            path = self._path(step)
+            tmp = path + '.partial'
+            with open(tmp, 'wb') as f:
+                np.savez(f, **arrays)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            for old in self.steps()[:-self.keep] if self.keep > 0 else ():
+                os.remove(self._path(old))
+        if jax.process_count() > 1:
+            from jax.experimental import multihost_utils
+            multihost_utils.sync_global_devices('nmf_checkpoint_%d' % step)
 
     def latest_step(self) -> Optional[int]:
-        return self.manager.latest_step()
+        steps = self.steps()
+        return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None,
                 shardings: Optional[dict] = None) -> Optional[NMFState]:
-        """Restore a step (default: latest).
+        """Restore a step (default: latest; None when there is none).
 
         Pass ``shardings`` (a dict mapping tree keys — usually 'W'/'T' —
         to ``jax.sharding.Sharding``) to restore those entries directly as
-        sharded ``jax.Array``s laid out on the mesh: orbax reads each
-        device's shards straight from storage, with no host-side
-        full-array materialization or resharding stall (the round-trip
-        the reference-scale BASELINE #5 factors cannot afford)."""
+        ``jax.Array``s laid out on the mesh, each device taking only its
+        own slice of the host copy."""
         if step is None:
-            step = self.manager.latest_step()
+            step = self.latest_step()
         if step is None:
             return None
-        if shardings:
-            meta = self.manager.item_metadata(step)
-            tree = getattr(meta, 'tree', meta)
-            abstract = {
-                key: jax.ShapeDtypeStruct(
-                    tuple(m.shape), m.dtype,
-                    sharding=shardings.get(key))
-                for key, m in dict(tree).items()}
-            restored = dict(self.manager.restore(
-                step, args=self._ocp.args.StandardRestore(abstract)))
-        else:
-            restored = dict(self.manager.restore(step))
-        return NMFState.from_tree(restored)
+        with np.load(self._path(step)) as f:
+            tree = {key: f[key] for key in f.files}
+        dtypes = json.loads(str(tree.pop('__dtypes__')))
+        for key, name in dtypes.items():
+            tree[key] = tree[key].view(jax.numpy.dtype(name))
+        for key, sharding in (shardings or {}).items():
+            if key in tree and sharding is not None:
+                a = tree[key]
+                tree[key] = jax.make_array_from_callback(
+                    a.shape, sharding, lambda idx, a=a: a[idx])
+        return NMFState.from_tree(tree)
 
     def close(self):
-        self.manager.wait_until_finished()
-        self.manager.close()
+        """Nothing to release: every save completed before it returned."""

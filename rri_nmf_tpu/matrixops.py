@@ -1,6 +1,6 @@
 """Leaf-layer array math: simplex projections, normalization, tfidf, helpers.
 
-TPU-native equivalents of the reference's ``matrixops.py``
+Equivalents of the reference's ``matrixops.py``
 (/root/reference/src/rri_nmf/matrixops.py). Everything here is pure
 ``jax.numpy`` and jit-/vmap-safe; the sort-based Duchi simplex projection
 (reference ``matrixops.py:5-69``) becomes ``jnp.sort`` + ``cumsum`` which XLA
@@ -9,7 +9,7 @@ projection (reference ``matrixops.py:72-100``, a Python loop) becomes a
 ``vmap`` so all rows project in one fused kernel.
 
 Functions accept NumPy or JAX arrays (SciPy sparse inputs are densified —
-the TPU compute path is dense) and return JAX arrays.
+the device compute path is dense) and return JAX arrays.
 """
 
 from functools import partial
@@ -57,8 +57,8 @@ def reproject_row_if_drifted(row, target_sum, dtype, extra_pred=None):
     ``nmf.py:758-761``, threshold 1e-15): returns ``row`` projected onto
     the ``target_sum`` simplex when its sum has drifted, unchanged
     otherwise. The ``lax.cond`` carries ONLY the row — never the
-    enclosing factor matrix, whose branch-tuple copies were measured at
-    ~92 µs/cond on TPU (results_round3_tm_interleaved.json).
+    enclosing factor matrix, whose branch-tuple copies XLA would
+    materialize on every call.
     ``extra_pred`` conjoins an additional guard (e.g. topic aliveness in
     the reset check — a dead row must not be projected to uniform)."""
     from jax import lax

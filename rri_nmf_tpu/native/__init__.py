@@ -1,6 +1,6 @@
 """Native (C++/OpenMP) host data-path kernels with NumPy fallback.
 
-The TPU compute path is JAX/XLA/Pallas; this is the *runtime around it*:
+The device compute path is JAX/XLA/Pallas; this is the *runtime around it*:
 host-side data preparation that would otherwise serialize fits behind
 scipy materializations (the reference's COO→dense+mask construction,
 ``sklearn_interface.py:78-102``). The library is compiled on first use
@@ -28,10 +28,9 @@ _lib = None
 _tried = False
 
 # Must match nmfdata_abi_version() in coo_dense.cpp. A stale .so with a
-# surviving mtime (archived copies, rsync -t) is not just slow-path wrong:
-# since the uint8 plan_scatter change a width-mismatched library would
-# write 4 bytes per 1-byte slot — silent heap corruption.
-_ABI_VERSION = 2
+# surviving mtime (archived copies, rsync -t) may export other functions
+# or other signatures than the bindings below declare.
+_ABI_VERSION = 3
 
 
 def _build():
@@ -123,19 +122,6 @@ def _load():
             lib.column_df.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
                 ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
-            lib.plan_hist.restype = None
-            lib.plan_hist.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64)]
-            lib.plan_scatter.restype = None
-            lib.plan_scatter.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.POINTER(ctypes.c_uint8)]
             _lib = lib
         except Exception as e:  # no compiler / load failure -> fallback
             logger.info('native data-path unavailable (%s); using NumPy '
@@ -189,49 +175,6 @@ def _int_flag(a):
     if a.dtype == np.int32:
         return np.ascontiguousarray(a), 1
     return np.ascontiguousarray(a, dtype=np.int64), 0
-
-
-def plan_hist(g, s, n_gtiles, n_stiles):
-    """Bucket histogram for the sparse chunk plans: counts[st*ngt+gt] over
-    all nonzeros (pass A of the counting-sort bucketing). Returns the
-    int64 (n_stiles*n_gtiles,) counts, or None when the native library is
-    unavailable (callers fall back to the NumPy sort path)."""
-    lib = _load()
-    if lib is None:
-        return None
-    g, g32 = _int_flag(np.asarray(g))
-    s, s32 = _int_flag(np.asarray(s))
-    counts = np.zeros(int(n_gtiles) * int(n_stiles), dtype=np.int64)
-    lib.plan_hist(g.ctypes.data_as(ctypes.c_void_p),
-                  s.ctypes.data_as(ctypes.c_void_p),
-                  len(g), g32, s32, int(n_gtiles),
-                  _ptr(counts, ctypes.c_int64))
-    return counts
-
-
-def plan_scatter(g, s, v, n_gtiles, slot_base, vals_out, glo_out, slo_out):
-    """Pass B of the counting-sort bucketing: place each nonzero's value
-    and local (within-tile) indices into its final chunk slot.
-    ``vals_out`` must be float32 or float64 and match ``v``'s width;
-    ``glo_out``/``slo_out`` are uint8 (local indices are ``% 128``);
-    all three output buffers arrive zeroed (padding slots stay 0)."""
-    lib = _load()
-    assert lib is not None, 'call plan_hist first (it gates availability)'
-    g, g32 = _int_flag(np.asarray(g))
-    s, s32 = _int_flag(np.asarray(s))
-    v = np.ascontiguousarray(v)
-    assert v.dtype == vals_out.dtype and v.dtype in (np.float32, np.float64)
-    assert glo_out.dtype == np.uint8 and slo_out.dtype == np.uint8
-    cursor = np.zeros(len(slot_base), dtype=np.int64)
-    lib.plan_scatter(
-        g.ctypes.data_as(ctypes.c_void_p),
-        s.ctypes.data_as(ctypes.c_void_p),
-        v.ctypes.data_as(ctypes.c_void_p),
-        len(g), g32, s32, 1 if v.dtype == np.float32 else 0,
-        int(n_gtiles), _ptr(slot_base, ctypes.c_int64),
-        _ptr(cursor, ctypes.c_int64),
-        vals_out.ctypes.data_as(ctypes.c_void_p),
-        _ptr(glo_out, ctypes.c_uint8), _ptr(slo_out, ctypes.c_uint8))
 
 
 def column_df(X):

@@ -5,7 +5,7 @@
 // sklearn_interface.py:78-102): two sparse-matrix materializations and two
 // full-matrix zero-fills per fit. At production recommender scale
 // (BASELINE.md: MovieLens-1M and beyond) that host step serializes before
-// any TPU work can start. These kernels do the scatter in one
+// any device work can start. These kernels do the scatter in one
 // OpenMP-parallel pass each, writing float32 buffers that device_put can
 // ship without further conversion.
 //
@@ -18,12 +18,11 @@
 extern "C" {
 
 // ABI version of this library. Bumped whenever an exported signature or
-// buffer width changes (v2: plan_scatter's glo/slo outputs went int32 →
-// uint8). The loader refuses a library reporting a different version and
-// rebuilds from source — an mtime check alone cannot catch a stale .so
-// whose timestamp survived a copy (archived mtimes, rsync -t), and a
-// width-mismatched plan_scatter would write out of bounds.
-int64_t nmfdata_abi_version(void) { return 2; }
+// buffer width changes (v3: the sparse-plan bucketing exports were
+// removed). The loader refuses a library reporting a different version
+// and rebuilds from source — an mtime check alone cannot catch a stale
+// .so whose timestamp survived a copy (archived mtimes, rsync -t).
+int64_t nmfdata_abi_version(void) { return 3; }
 
 // Scatter COO triples into a dense row-major (n x d) matrix and a binary
 // mask. Duplicate (i, j) pairs ACCUMULATE (scipy.sparse.coo_matrix sums
@@ -58,67 +57,6 @@ int coo_to_dense_mask(const int64_t* rows, const int64_t* cols,
         for (int64_t j = 0; j < d; ++j)
             M_out[i * d + j] = (X_out[i * d + j] != 0.0f) ? 1.0f : 0.0f;
     return 0;
-}
-
-// ---------------------------------------------------------------------
-// Sparse-plan bucketing (ops/sparse_mxu.py / ops/sparse_dma.py).
-//
-// The MXU chunk plans bucket every nonzero by its (scatter-tile,
-// gather-tile) 128x128 tile of X. The NumPy formulation is an
-// O(nnz log nnz) argsort plus ~8 full-array passes (permutes, scatters)
-// — profiled at ~16 us/nnz on the deployment host, which DOMINATES
-// whole sparse fits (7.5M nnz: ~80 s host vs ~60 ms/sweep device).
-// Tile buckets are dense integers, so a counting sort does it in two
-// O(nnz) passes with no sort at all:
-//   pass A (plan_hist):     bucket histogram
-//   (Python computes chunk offsets / group padding on the ~nchunks-sized
-//    bucket level — cheap)
-//   pass B (plan_scatter):  place each nonzero's value + local indices
-//                           directly into its final padded chunk slot
-// Serial: the deployment host is single-core; the loops are trivially
-// OpenMP-able (per-thread histograms / atomic-capture cursors) if that
-// changes.
-
-static inline int64_t idx_at(const void* p, int is32, int64_t t) {
-    return is32 ? (int64_t)((const int32_t*)p)[t] : ((const int64_t*)p)[t];
-}
-
-// Pass A: counts[(s/128)*n_gtiles + g/128]++ over all nonzeros.
-// counts must arrive zeroed (n_gtiles*n_stiles entries).
-void plan_hist(const void* g, const void* s, int64_t nnz,
-               int g_is32, int s_is32, int64_t n_gtiles,
-               int64_t* counts) {
-    for (int64_t t = 0; t < nnz; ++t) {
-        int64_t gt = idx_at(g, g_is32, t) >> 7;   // /128
-        int64_t st = idx_at(s, s_is32, t) >> 7;
-        counts[st * n_gtiles + gt]++;
-    }
-}
-
-// Pass B: slot = slot_base[bucket] + cursor[bucket]++; write value and
-// local (within-tile) gather/scatter indices. cursor arrives zeroed;
-// vals/glo/slo arrive zeroed (padding slots must stay v = 0).
-// glo/slo are uint8: local indices are `% 128` so they always fit, and
-// the narrow form quarters both this pass's write traffic and the plan's
-// host->device transfer (the device widens to int32 once on arrival —
-// Mosaic kernels need >= 32-bit operands for 1-row slicing).
-void plan_scatter(const void* g, const void* s, const void* v,
-                  int64_t nnz, int g_is32, int s_is32, int v_is32,
-                  int64_t n_gtiles, const int64_t* slot_base,
-                  int64_t* cursor, void* vals_out,
-                  uint8_t* glo_out, uint8_t* slo_out) {
-    for (int64_t t = 0; t < nnz; ++t) {
-        int64_t gi = idx_at(g, g_is32, t);
-        int64_t si = idx_at(s, s_is32, t);
-        int64_t b = (si >> 7) * n_gtiles + (gi >> 7);
-        int64_t slot = slot_base[b] + cursor[b]++;
-        if (v_is32)
-            ((float*)vals_out)[slot] = ((const float*)v)[t];
-        else
-            ((double*)vals_out)[slot] = ((const double*)v)[t];
-        glo_out[slot] = (uint8_t)(gi & 127);
-        slo_out[slot] = (uint8_t)(si & 127);
-    }
 }
 
 // Column document frequencies of a dense count matrix (tfidf prep,

@@ -4,8 +4,8 @@ RRI/HALS is an exact cyclic block-coordinate descent; its linear
 convergence rate degrades badly on ill-conditioned data — e.g. the
 U[0,1]-factor north-star class, where the mean-dominated spectrum stalls
 plain sweeps around 2e-3 relative error for thousands of sweeps in ANY
-precision (see ``benchmarks/results_round3_control.json``: the reference
-algorithm in float64 NumPy plateaus identically). The reference has no
+precision (the reference algorithm in float64 NumPy plateaus
+identically). The reference has no
 answer (its only iteration scheme is the plain sweep,
 ``/root/reference/src/rri_nmf/nmf.py:415-478``).
 
@@ -34,8 +34,7 @@ sweep, O(nk + kd)); the driver returns it when it beats the final one.
 The objective check uses an explicit blockwise residual, NOT the Gram
 identity ``||X||² - 2<WᵀX,T> + <G,G²>``: near the 1e-4 target the three
 ~``||X||²``-sized Gram terms cancel to below f32 noise, while residual
-entries are differences whose squares sum forward-stable (the round-2
-measurement-integrity lesson, ``benchmarks/run_baselines.py``).
+entries are differences whose squares sum forward-stable.
 
 Driver entry: ``nmf(..., accel='her')`` — dense or masked (WRRI) configs
 without resets/gradient stores/DP (the north-star and recommender fit
@@ -76,10 +75,8 @@ def make_residual_obj(cfg, block_rows=4096, distributed=None):
     runs the blockwise scan INSIDE a ``shard_map`` over each device's
     local tile (+ one scalar psum): per-device temps stay at block size.
     An X-sized f32 tile per device is not "a fraction of X" at scale —
-    the 1M×100k k=1024 pod probe measured a 24.2 GiB/device residual
-    temp from the one-piece form, an OOM on 16 GB-HBM chips whose local
-    bf16 X tile is only 12.3 GiB
-    (``results_round4_pod_scale_compile.json``). The one-piece GSPMD
+    at 1M×100k on four devices the one-piece form's residual temp is
+    twice the device's bf16 X tile. The one-piece GSPMD
     form remains the fallback when the global shape does not tile the
     mesh, and for UNALIGNED meshes (the driver passes
     ``distributed=True`` with ``cfg.mesh is None`` there — X is still

@@ -1,22 +1,20 @@
 """Column-scaled int16 storage of X: 2 bytes/entry at ~70x less
 quantization noise than bfloat16.
 
-Motivation (measured, round 4): at the beyond-HBM north-star shape
-(100k x 50k k=256) a one-chip fit must store X in 2 bytes/entry.
-``bfloat16`` storage quantizes X at RMS ``2^-9/sqrt(3) ~ 1.1e-3``
-relative, and exact RRI converges to ~0.98x the storage noise
-(``benchmarks/results_round4_quant_floor.json``) — so bf16 caps the
-reachable relative Frobenius error near 1e-3, above the 1e-4 target.
+Motivation: when X must be stored in 2 bytes/entry (a dense X too large
+for the device in float32), ``bfloat16`` storage quantizes X at RMS
+``2^-9/sqrt(3) ~ 1.1e-3`` relative, and exact RRI converges to about the
+storage noise — so bf16 caps the reachable relative Frobenius error near
+1e-3, above the 1e-4 target.
 A per-column linear int16 code ``X ~ q * s[None, :]`` with
 ``s_j = colmax_j / 32767`` stores the same 2 bytes/entry at RMS
 relative noise ~2e-5 for concentrated nonnegative data, putting the
 one-chip floor BELOW 1e-4.
 
-TPU mapping: ``q`` converts int16 -> f32 exactly; the two sweep GEMMs
-run as mixed ``f32 x (int16->f32)`` dots whose operand upcast XLA fuses
-into the GEMM stream (no f32 copy of X materializes — compile-probed at
-the north-star shape, same pattern as the bf16 mixed-storage path,
-``ops/dense_pallas.py``). The per-column scale folds OUTSIDE the GEMMs:
+Device mapping: ``q`` converts int16 -> f32 exactly; the two sweep GEMMs
+run as mixed ``f32 x (int16->f32)`` dots whose operand upcast XLA may
+fuse into the GEMM (same pattern as the bf16 mixed-storage path,
+``ops/dense_phase.py``). The per-column scale folds OUTSIDE the GEMMs:
 
 - T-phase numerator:  ``Wᵀ X_real = (Wᵀ q) ⊙ sᵀ``      (O(kd) postscale)
 - W-phase numerator:  ``X_real Tᵀ = q (T ⊙ sᵀ)ᵀ``      (O(kd) prescale)
@@ -25,7 +23,7 @@ the north-star shape, same pattern as the bf16 mixed-storage path,
 so quantized storage costs the same GEMM passes as an f32-precision
 mixed-bf16 sweep. No reference counterpart (the reference is dense f64
 NumPy, ``/root/reference/src/rri_nmf/nmf.py``); this is the library's
-own beyond-HBM scale axis (SURVEY §5.7).
+own beyond-memory scale axis (SURVEY §5.7).
 """
 
 from functools import partial

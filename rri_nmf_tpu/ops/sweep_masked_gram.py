@@ -2,14 +2,9 @@
 
 The O(nnz) interleaved masked sweep (``ops/sweep_masked_sparse.py``)
 carries the observed-entry residual and pays, per topic, two O(nnz)
-gathers and two O(nnz) segment-sums. On TPU those lower to scalar
-gather/scatter streams: measured ~192 ms per gather and ~171-223 ms per
-segment-sum at 25M observations (0.36 GB/s effective,
-``benchmarks/results_round4_masked_sparse_parts.json``) — the sweep is
-two orders of magnitude below HBM speed because none of its work can
-touch the MXU.
+gathers and two O(nnz) segment-sums, k times per phase.
 
-This module is the MXU reformulation, available under
+This module is the Gram-tensor reformulation, available under
 ``update_order='phase'``. In phase order (all T-row updates, then all
 W-column updates — the order the dense Gram-blocked sweep uses,
 ``ops/sweep_xla.py``) the *other* factor is frozen for a whole phase:
@@ -34,23 +29,13 @@ The Gauss-Seidel corrections use the CURRENT (partially updated) factor,
 so every update remains an exact coordinate minimization — monotone
 descent holds exactly as for the interleaved order; only the cyclic
 order differs. The per-topic work is pure dense vector math (k·d or k·n
-multiply-adds), and ALL O(nnz) work collapses into four contractions per
-sweep that run on the tile-bucketed one-hot MXU kernel
-(``ops/sparse_mxu.mxu_contract``): A and C with k-row factor stacks, Γ
-and Θ with k²-row stacks (``F = (W ⊛ W)ᵀ``, the column-wise Khatri-Rao
-square). Per-chunk cost is ``2(C + k²)·128²`` MXU flops, so the sweep is
-MXU-bound instead of scatter-bound; at the 100k×50k/25M-obs record shape
-and k=32 this replaces ~53 s of gather/segment-sum per sweep with ~4
-MXU contractions (measured in
-``benchmarks/results_round4_masked_gram.json``). Memory is
-O(nnz + k²(n + d)): the Gram tensors cap the economical k at roughly
-``k² (n + d) · 4 B ≲ HBM/4`` — k ≲ 128 at the record shape; beyond that
-the interleaved O(nnz) sweep remains the fallback.
-
-The ``'segsum'`` backend computes the same four contractions with XLA
-gathers/segment-sums (O(nnz·k²) temporaries chunked over observations) —
-the f64-exact oracle for tests and the CPU path. The objective also
-factors through the same tensors::
+multiply-adds), and ALL O(nnz) work collapses into two segment-sum
+contractions per phase: A and Γ from one pass over the observations
+(k + k² values per observation, chunked so the O(nnz·k²) temporaries
+stay bounded), C and Θ from another. Memory is O(nnz + k²(n + d)): the
+Gram tensors cap the economical k; past the device budget
+(:func:`gram_budget_bytes`) Γ/Θ are built and consumed in k-panels. The
+objective also factors through the same tensors::
 
     ‖√M ⊙ (X − WT)‖² = Σ m x² − 2·Σ_t w_tᵀ C[t] + Σ_{t,s} w_tᵀ Θ[t,s] w_s
 
@@ -68,7 +53,7 @@ NumPy phase-order masked oracle is pinned at 1e-10 f64 in
 
 import dataclasses
 from functools import lru_cache
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -81,79 +66,33 @@ from rri_nmf_tpu.optimization import qf_min_vector_c
 from rri_nmf_tpu.ops.sweep_masked_sparse import MaskedCOOPlan
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig, resolve_mixed_dtypes
 
-TILE = 128
-
-# The chunk kernel scalar-prefetches its per-chunk ftile array (int32)
-# into SMEM (~1 MB/core on v5e). A scattered observed set touches almost
-# every (128, 128) tile pair — ~306k populated pairs at 100k×50k with
-# 25M observations — and the one-piece plan overflowed SMEM on the real
-# chip ("Allocation (size=1228800) would exceed memory (size=1048576)
-# ... space=smem ... 'prefetched SMEM operand 0'"). Plans larger than
-# this are split at group boundaries into several pallas_calls whose
-# mask-selected partial outputs sum exactly (each call's c == 0 grid
-# step re-initializes its first output tile, so a split mid-run is
-# safe): 98304 chunks = 384 KB of ftile, leaving headroom for otile and
-# Mosaic's own SMEM state.
-MAX_PREFETCH_CHUNKS = 98304
-
-
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class MaskedGramPlan:
-    """Observed-set plan for the Gram-phase masked sweep.
-
-    ``coo`` always holds the sorted COO observation arrays (the segsum
-    backend's inputs, the pickle/round-trip source, and the gather
-    objective's fallback). With ``backend='mxu'`` the chunked
-    contraction plans ride along: ``m_t``/``m_w`` are tuples of
-    :class:`~rri_nmf_tpu.ops.sparse_mxu.ContractPlan` SMEM-sized
-    segments over the MASK values (Γ/Θ — see
-    :data:`MAX_PREFETCH_CHUNKS`), and ``mx_t_vals``/``mx_w_vals`` are
-    matching tuples of alternate value vectors (mask ⊙ X) in the same
-    chunk-slot layout (A/C) — the index arrays are shared, only values
-    differ. ``sum_mx2`` is the static ``Σ m x²`` objective constant.
-    """
+    """Observed-set plan for the Gram-phase masked sweep: the sorted COO
+    observation arrays (``coo``, also the pickle/round-trip source and
+    the gather objective's input) and the static ``Σ m x²`` objective
+    constant ``sum_mx2``."""
     coo: MaskedCOOPlan
-    m_t: Optional[Any]             # tuple of ContractPlan segments (t-dir)
-    m_w: Optional[Any]             # tuple of ContractPlan segments (w-dir)
-    mx_t_vals: Optional[Any]       # tuple of value arrays, same layout
-    mx_w_vals: Optional[Any]
     sum_mx2: jnp.ndarray           # () device scalar: Σ m x²
     shape: Tuple[int, int]
     nnz: int
-    group: int
-    backend: str
 
     def tree_flatten(self):
-        return ((self.coo, self.m_t, self.m_w, self.mx_t_vals,
-                 self.mx_w_vals, self.sum_mx2),
-                (self.shape, self.nnz, self.group, self.backend))
+        return (self.coo, self.sum_mx2), (self.shape, self.nnz)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children, shape=aux[0], nnz=aux[1], group=aux[2],
-                   backend=aux[3])
+        return cls(*children, shape=aux[0], nnz=aux[1])
 
     def to_scipy(self):
         return self.coo.to_scipy()
 
 
-def _interpret_default():
-    """Pallas TPU kernels only run natively on TPU; everywhere else
-    (CPU suite, virtual meshes) use the interpreter."""
-    return jax.default_backend() != 'tpu'
-
-
-def plan_masked_gram(X, W_mat, dtype, backend=None, group=8):
+def plan_masked_gram(X, W_mat, dtype):
     """Build a :class:`MaskedGramPlan` from scipy-sparse ``W_mat`` (and a
-    dense or scipy-sparse ``X``). ``backend='mxu'`` (TPU default) builds
-    the chunked MXU contraction plans; ``'segsum'`` (CPU default) keeps
-    only the COO arrays."""
+    dense or scipy-sparse ``X``)."""
     from rri_nmf_tpu.ops.sweep_masked_sparse import masked_coo_host_arrays
-    if backend is None:
-        backend = 'mxu' if jax.default_backend() == 'tpu' else 'segsum'
-    # build on the host once; the device COO plan and (for 'mxu') the
-    # chunk plans are cut from the same numpy arrays — never fetched back
     rows_h, cols_h, x_np, m_np, shape, nz = \
         masked_coo_host_arrays(X, W_mat, dtype)
     coo = MaskedCOOPlan(
@@ -164,128 +103,35 @@ def plan_masked_gram(X, W_mat, dtype, backend=None, group=8):
     sum_mx2 = jnp.asarray(
         np.float64(m_np).dot(np.float64(x_np) ** 2),
         dtype=jnp.promote_types(dtype, jnp.float32))
-    if backend == 'segsum':
-        return MaskedGramPlan(
-            coo=coo, m_t=None, m_w=None, mx_t_vals=None, mx_w_vals=None,
-            sum_mx2=sum_mx2, shape=coo.shape, nnz=nz, group=group,
-            backend='segsum')
-    if backend != 'mxu':
-        raise ValueError("backend must be 'mxu' or 'segsum', got %r"
-                         % (backend,))
-    from rri_nmf_tpu.ops.sparse_mxu import _plan_direction_np, _widen_i32
-    from rri_nmf_tpu.ops.sparse_mxu import ContractPlan
-    n, d = coo.shape
-    rows = rows_h[:nz]
-    cols = cols_h[:nz]
-    m = m_np[:nz]
-    mx = (m * x_np[:nz]).astype(dtype, copy=False)
-    m = m.astype(dtype, copy=False)
-    n_rt = -(-n // TILE)
-    n_ct = -(-d // TILE)
-
-    def _segments(arrays):
-        """Split host plan arrays into SMEM-sized chunk ranges at group
-        boundaries; each segment carries its OWN touched-tile mask (the
-        kernel leaves untouched output tiles undefined and selects
-        against the mask, so partial outputs sum exactly)."""
-        vals, glo, slo, ftile, otile, mask = arrays
-        nchunks = ftile.shape[0]
-        if nchunks <= MAX_PREFETCH_CHUNKS:
-            return [arrays]
-        C = TILE
-        max_g = MAX_PREFETCH_CHUNKS // group
-        ngroups = otile.shape[0]
-        spad = mask.shape[1]
-        segs = []
-        for g0 in range(0, ngroups, max_g):
-            g1 = min(g0 + max_g, ngroups)
-            ot = otile[g0:g1]
-            mseg = np.zeros((spad // TILE, 1), mask.dtype)
-            mseg[np.unique(ot)] = 1.0
-            mseg = np.ascontiguousarray(
-                np.broadcast_to(mseg, (spad // TILE, TILE)).reshape(1, -1))
-            segs.append((vals[:, g0 * group * C:g1 * group * C],
-                         glo[:, g0 * group * C:g1 * group * C],
-                         slo[:, g0 * group * C:g1 * group * C],
-                         ftile[g0 * group:g1 * group], ot, mseg))
-        return segs
-
-    def _dir(g, s, v, ngt, nst):
-        segs = _segments(_plan_direction_np(
-            g, s, v, ngt, nst, TILE, group, np.dtype(dtype)))
-        return tuple(
-            ContractPlan(jnp.asarray(vals), _widen_i32(jnp.asarray(glo)),
-                         _widen_i32(jnp.asarray(slo)),
-                         jnp.asarray(ftile), jnp.asarray(otile),
-                         jnp.asarray(mask))
-            for vals, glo, slo, ftile, otile, mask in segs)
-
-    def _vals_like(plans, g, s, v, ngt, nst):
-        # the counting/sort bucketing is deterministic in (g, s), so a
-        # second value set lands in the identical slot layout; only the
-        # vals arrays differ between the mask and mask*X plans
-        vals = _plan_direction_np(g, s, v, ngt, nst, TILE, group,
-                                  np.dtype(dtype))[0]
-        out, off = [], 0
-        for p in plans:
-            w = p.vals.shape[1]
-            out.append(jnp.asarray(vals[:, off:off + w]))
-            off += w
-        assert off == vals.shape[1]
-        return tuple(out)
-
-    m_t = _dir(rows, cols, m, n_rt, n_ct)
-    mx_t = _vals_like(m_t, rows, cols, mx, n_rt, n_ct)
-    m_w = _dir(cols, rows, m, n_ct, n_rt)
-    mx_w = _vals_like(m_w, cols, rows, mx, n_ct, n_rt)
-    return MaskedGramPlan(
-        coo=coo, m_t=m_t, m_w=m_w, mx_t_vals=mx_t,
-        mx_w_vals=mx_w, sum_mx2=sum_mx2, shape=(n, d),
-        nnz=nz, group=group, backend='mxu')
+    return MaskedGramPlan(coo=coo, sum_mx2=sum_mx2, shape=coo.shape,
+                          nnz=nz)
 
 
-# full-tensor Γ/Θ budget: past this the sweep tiles them in k-panels
-GRAM_BUDGET_BYTES = 4e9
+# share of the device memory the full Γ/Θ tensors may take; past it the
+# sweep tiles them in k-panels
+GRAM_BUDGET_FRACTION = 0.25
 
 
-# Khatri-Rao row ceiling for one chunk-kernel dispatch. The MXU chunk
-# kernel holds G+1 (rows, TILE) factor/output blocks in VMEM per grid
-# step (~rows·(G+1)·TILE·4 bytes, double-buffered); Mosaic's scoped-vmem
-# limit is 16 MiB on this toolchain, so rows beyond ~1700 fail to
-# compile ("Ran out of memory in memory space vmem", observed at
-# p·k = 6656 on the k=128 TPU record attempt). 1280 rows ≈ 11.8 MiB
-# leaves headroom. This also bounds the FULL-tensor path: its stacked
-# A/Γ contraction has k + k(k+1)/2 rows, so k ≳ 49 must panel-tile even
-# when the Γ/Θ tensors would fit HBM.
-VMEM_GRAM_ROWS = 1280
+def gram_budget_bytes():
+    """Γ/Θ budget: :data:`GRAM_BUDGET_FRACTION` of the device memory."""
+    from rri_nmf_tpu.ops.capability import memory_budget_bytes
+    return memory_budget_bytes(GRAM_BUDGET_FRACTION)
 
 
-def auto_panel(k, n, d, itemsize, budget=None, mxu=None):
+def auto_panel(k, n, d, itemsize, budget=None):
     """Pick the Γ/Θ tiling for a (n, d) masked problem at rank k.
 
     Returns ``None`` when the full (k², n+d) tensors fit ``budget``
-    (default :data:`GRAM_BUDGET_BYTES`, read at call time) — the
+    (default :func:`gram_budget_bytes`, read at call time) — the
     full-tensor path; a panel size ``1 ≤ p < k`` when only (p·k, n+d)
     tiles fit; or ``0`` when even a single panel row exceeds the
-    budget (caller declines the Gram path).
-
-    ``mxu`` additionally bounds the contraction's Khatri-Rao row count
-    by the MXU chunk kernel's scoped-VMEM ceiling
-    (:data:`VMEM_GRAM_ROWS`) — a Mosaic compile limit, so it applies
-    to the real-TPU 'mxu' backend only (the segsum/XLA backends and
-    interpret mode have no such cap). Default ``None`` auto-detects:
-    capped exactly when the default backend is a TPU (where
-    ``plan_masked_gram`` picks 'mxu')."""
+    budget (caller declines the Gram path)."""
     if budget is None:
-        budget = GRAM_BUDGET_BYTES
-    if mxu is None:
-        mxu = jax.default_backend() == 'tpu'
-    row_cap = VMEM_GRAM_ROWS if mxu else float('inf')
+        budget = gram_budget_bytes()
     unit = k * float(n + d) * itemsize
-    full_rows = k + k * (k + 1) // 2
-    if k * unit <= budget and full_rows <= row_cap:
+    if k * unit <= budget:
         return None
-    return int(min(k - 1, budget // max(unit, 1.0), row_cap // k))
+    return int(min(k - 1, budget // max(unit, 1.0)))
 
 
 def supports_masked_gram(cfg: SweepConfig) -> bool:
@@ -301,100 +147,10 @@ def supports_masked_gram(cfg: SweepConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# contraction backends
+# segment-sum contractions
 # ---------------------------------------------------------------------------
 
-def _round8(x):
-    return (x + 7) // 8 * 8
-
-
-@lru_cache(maxsize=32)
-def _sym_pairs(k):
-    """Static index maps for the symmetric Gram trick: Γ[t, s] = Γ[s, t]
-    (and Θ likewise), so only the k(k+1)/2 unique (t ≤ s) Khatri-Rao
-    rows are contracted — halving the dominant MXU cost — and the full
-    (k, k, ·) tensor is reconstructed by a gather. Returns
-    ``(idx_t, idx_s, unpack)`` with ``unpack[t·k+s]`` = the pair row of
-    ``(min(t,s), max(t,s))``. NumPy constants (NOT jnp): the first call
-    can happen inside a jit trace, and a cached device array created
-    there would leak a tracer into every later trace."""
-    idx_t, idx_s = np.triu_indices(k)
-    pair_of = np.zeros((k, k), np.int32)
-    pair_of[idx_t, idx_s] = np.arange(idx_t.size, dtype=np.int32)
-    pair_of[idx_s, idx_t] = pair_of[idx_t, idx_s]
-    return (idx_t.astype(np.int32), idx_s.astype(np.int32),
-            pair_of.reshape(-1))
-
-
-def _contract_segs(plans, F, vals_override, acc, interpret, group):
-    """Sum the chunked contraction over the plan's SMEM-sized segments
-    (one pallas_call each; see :data:`MAX_PREFETCH_CHUNKS`)."""
-    from rri_nmf_tpu.ops.sparse_mxu import mxu_contract
-    out = None
-    for i, p in enumerate(plans):
-        if vals_override is not None:
-            p = p._replace(vals=vals_override[i])
-        part = mxu_contract(p, F, acc_dt=acc, interpret=interpret,
-                            group=group)
-        out = part if out is None else out + part
-    return out
-
-
-def _mxu_gram_t_A(plan, W, acc, interpret):
-    """A = Wᵀ(M⊙X) (k, d) alone — the panel path computes Γ in k-panel
-    tiles and needs A just once per phase."""
-    n, d = plan.shape
-    k = W.shape[1]
-    npad = -(-n // TILE) * TILE
-    Wt = jnp.zeros((_round8(k), npad), acc).at[:k, :n].set(
-        W.astype(acc).T)
-    return _contract_segs(plan.m_t, Wt, plan.mx_t_vals, acc, interpret,
-                          plan.group)[:k, :d]
-
-
-def _mxu_gram_t_panel(plan, W, t0, p, acc, interpret):
-    """Γ[t0:t0+p, :, :] (p, k, d): contract the p·k Khatri-Rao rows
-    ``w_t ⊙ w_s`` (t in the panel, all s) — the full (k², d) tensor
-    never materializes, lifting the 4 GB Gram ceiling to any k whose
-    single panel fits (VERDICT r5 item 3). No symmetric halving across
-    panels (~2x the MXU flops of the full-tensor path; still MXU-bound
-    vs the interleaved sweep's ~0.4 GB/s gathers)."""
-    n, d = plan.shape
-    k = W.shape[1]
-    npad = -(-n // TILE) * TILE
-    Wa = W.astype(acc)
-    # rows t-major: row (t-t0)·k + s  =  w_t ⊙ w_s
-    KR = (Wa[:, t0:t0 + p, None] * Wa[:, None, :]).reshape(n, p * k)
-    F = jnp.zeros((_round8(p * k), npad), acc).at[:p * k, :n].set(KR.T)
-    Gp = _contract_segs(plan.m_t, F, None, acc, interpret,
-                        plan.group)[:p * k, :d]
-    return Gp.reshape(p, k, d)
-
-
-def _mxu_gram_w_C(plan, T, acc, interpret):
-    """C = (M⊙X)Tᵀ (k, n) alone (panel path)."""
-    n, d = plan.shape
-    k = T.shape[0]
-    dpad = -(-d // TILE) * TILE
-    Tp = jnp.zeros((_round8(k), dpad), acc).at[:k, :d].set(T.astype(acc))
-    return _contract_segs(plan.m_w, Tp, plan.mx_w_vals, acc, interpret,
-                          plan.group)[:k, :n]
-
-
-def _mxu_gram_w_panel(plan, T, t0, p, acc, interpret):
-    """Θ[t0:t0+p, :, :] (p, k, n) via the panel Khatri-Rao rows."""
-    n, d = plan.shape
-    k = T.shape[0]
-    dpad = -(-d // TILE) * TILE
-    Ta = T.astype(acc)
-    KR = (Ta[t0:t0 + p, None, :] * Ta[None, :, :]).reshape(p * k, d)
-    F = jnp.zeros((_round8(p * k), dpad), acc).at[:p * k, :d].set(KR)
-    Hp = _contract_segs(plan.m_w, F, None, acc, interpret,
-                        plan.group)[:p * k, :n]
-    return Hp.reshape(p, k, n)
-
-
-def _seg_gram_t_A(plan, W, acc, interpret=None):
+def _seg_gram_t_A(plan, W, acc):
     coo = plan.coo
     n, d = plan.shape
     k = W.shape[1]
@@ -406,7 +162,7 @@ def _seg_gram_t_A(plan, W, acc, interpret=None):
     return _seg_chunked(coo, vals, d, coo.cols, k, acc).T
 
 
-def _seg_gram_t_panel(plan, W, t0, p, acc, interpret=None):
+def _seg_gram_t_panel(plan, W, t0, p, acc):
     coo = plan.coo
     n, d = plan.shape
     k = W.shape[1]
@@ -421,7 +177,7 @@ def _seg_gram_t_panel(plan, W, t0, p, acc, interpret=None):
     return out.T.reshape(p, k, d)
 
 
-def _seg_gram_w_C(plan, T, acc, interpret=None):
+def _seg_gram_w_C(plan, T, acc):
     coo = plan.coo
     n, d = plan.shape
     k = T.shape[0]
@@ -433,7 +189,7 @@ def _seg_gram_w_C(plan, T, acc, interpret=None):
     return _seg_chunked(coo, vals, n, coo.rows, k, acc).T
 
 
-def _seg_gram_w_panel(plan, T, t0, p, acc, interpret=None):
+def _seg_gram_w_panel(plan, T, t0, p, acc):
     coo = plan.coo
     n, d = plan.shape
     k = T.shape[0]
@@ -448,56 +204,7 @@ def _seg_gram_w_panel(plan, T, t0, p, acc, interpret=None):
     return out.T.reshape(p, k, n)
 
 
-def _panel_backends(plan_backend):
-    if plan_backend == 'mxu':
-        return (_mxu_gram_t_A, _mxu_gram_t_panel,
-                _mxu_gram_w_C, _mxu_gram_w_panel)
-    return (_seg_gram_t_A, _seg_gram_t_panel,
-            _seg_gram_w_C, _seg_gram_w_panel)
-
-
-def _mxu_gram_t(plan, W, acc, interpret):
-    """(A, Γ) from the frozen W: A = Wᵀ(M⊙X) (k, d), Γ = (W ⊛ W)ᵀ M
-    (k, k, d). One k-row and one k(k+1)/2-row chunk contraction per SMEM
-    segment (Γ is symmetric in (t, s): only unique pairs hit the MXU)."""
-    n, d = plan.shape
-    k = W.shape[1]
-    npad = -(-n // TILE) * TILE
-    Wa = W.astype(acc)
-    Wt = jnp.zeros((_round8(k), npad), acc).at[:k, :n].set(Wa.T)
-    A = _contract_segs(plan.m_t, Wt, plan.mx_t_vals, acc, interpret,
-                       plan.group)[:k, :d]
-    it, is_, unpack = _sym_pairs(k)
-    kp = it.shape[0]
-    WW = Wa[:, it] * Wa[:, is_]                      # (n, k(k+1)/2)
-    F = jnp.zeros((_round8(kp), npad), acc).at[:kp, :n].set(WW.T)
-    Gp = _contract_segs(plan.m_t, F, None, acc, interpret,
-                        plan.group)[:kp, :d]
-    G = Gp[unpack].reshape(k, k, d)
-    return A, G
-
-
-def _mxu_gram_w(plan, T, acc, interpret):
-    """(C, Θ) from the frozen T: C = (M⊙X)Tᵀ (k, n), Θ = M (T ⊛ T)ᵀ
-    (k, k, n) — Θ via the symmetric-pair contraction like Γ."""
-    n, d = plan.shape
-    k = T.shape[0]
-    dpad = -(-d // TILE) * TILE
-    Ta = T.astype(acc)
-    Tp = jnp.zeros((_round8(k), dpad), acc).at[:k, :d].set(Ta)
-    C = _contract_segs(plan.m_w, Tp, plan.mx_w_vals, acc, interpret,
-                       plan.group)[:k, :n]
-    it, is_, unpack = _sym_pairs(k)
-    kp = it.shape[0]
-    TT = Ta[it] * Ta[is_]                            # (k(k+1)/2, d)
-    F = jnp.zeros((_round8(kp), dpad), acc).at[:kp, :d].set(TT)
-    Hp = _contract_segs(plan.m_w, F, None, acc, interpret,
-                        plan.group)[:kp, :n]
-    H = Hp[unpack].reshape(k, k, n)
-    return C, H
-
-
-# observation-chunk size for the segsum backend's O(nnz·k²) temporaries
+# observation-chunk size for the segment sums' O(nnz·k²) temporaries
 _SEG_CHUNK = 1 << 16
 
 
@@ -530,7 +237,7 @@ def _seg_chunked(coo, k2_fn, out_dim, seg_ids, width, acc):
     return out
 
 
-def _seg_gram_t(plan, W, acc, interpret=None):
+def _seg_gram_t(plan, W, acc):
     coo = plan.coo
     n, d = plan.shape
     k = W.shape[1]
@@ -549,7 +256,7 @@ def _seg_gram_t(plan, W, acc, interpret=None):
     return A, G
 
 
-def _seg_gram_w(plan, T, acc, interpret=None):
+def _seg_gram_w(plan, T, acc):
     coo = plan.coo
     n, d = plan.shape
     k = T.shape[0]
@@ -568,19 +275,12 @@ def _seg_gram_w(plan, T, acc, interpret=None):
     return C, H
 
 
-def _backends(plan_backend):
-    if plan_backend == 'mxu':
-        return _mxu_gram_t, _mxu_gram_w
-    return _seg_gram_t, _seg_gram_w
-
-
 # ---------------------------------------------------------------------------
 # the sweep
 # ---------------------------------------------------------------------------
 
 @lru_cache(maxsize=16)
-def make_masked_gram_sweep(cfg: SweepConfig, backend: str = 'segsum',
-                           interpret: Optional[bool] = None,
+def make_masked_gram_sweep(cfg: SweepConfig,
                            panel: Optional[int] = None):
     """Build the jitted Gram-phase masked sweep. Same call signature as
     ``make_masked_sparse_sweep``::
@@ -593,24 +293,20 @@ def make_masked_gram_sweep(cfg: SweepConfig, backend: str = 'segsum',
     ``panel``: when set (1 ≤ panel < k), Γ/Θ are built and consumed in
     (panel, k, ·) tiles instead of whole (k², ·) tensors — peak Gram
     memory drops from ``k²(n+d)`` to ``panel·k·max(n, d)`` words, so k
-    is no longer capped by the 4 GB full-tensor gate (VERDICT r5
-    item 3). Each panel's Gauss-Seidel corrections read the CURRENT
+    is no longer capped by the full-tensor budget. Each panel's Gauss-Seidel corrections read the CURRENT
     partially-updated factor, so the updates are bitwise the same
     coordinate minimizations as the full-tensor path (parity pinned in
     tests/test_masked_gram.py). Cost: the mask chunk stream is
-    contracted k/panel times per phase (still MXU-bound; the full path
-    streams it once with symmetric halving).
+    contracted k/panel times per phase (the full path streams it
+    once).
     """
     assert supports_masked_gram(cfg), \
         'config not supported by the Gram-phase masked sweep'
     k = cfg.k
-    if interpret is None:
-        interpret = _interpret_default()
     if panel is not None and not (1 <= panel < k):
         raise ValueError('panel must satisfy 1 <= panel < k')
     if panel is not None:
-        return _make_panel_sweep(cfg, backend, interpret, panel)
-    gram_t, gram_w = _backends(backend)
+        return _make_panel_sweep(cfg, panel)
 
     def sweep(plan, W, T, key, resets_left, reset_key, *extras):
         w_row_sum_vec = (extras[0].reshape(-1)
@@ -621,7 +317,7 @@ def make_masked_gram_sweep(cfg: SweepConfig, backend: str = 'segsum',
         # ---- T-phase: W frozen (no scale transfer in phase order, no
         # resets here) → A and Γ exact for the whole phase -------------
         if not cfg.fix_T:
-            A, G = gram_t(plan, W, acc, interpret)
+            A, G = _seg_gram_t(plan, W, acc)
 
             def t_topic(i, carry):
                 T, key = carry
@@ -657,7 +353,7 @@ def make_masked_gram_sweep(cfg: SweepConfig, backend: str = 'segsum',
 
         # ---- W-phase: T frozen → C and Θ exact ------------------------
         if not cfg.fix_W:
-            C, H = gram_w(plan, T, acc, interpret)
+            C, H = _seg_gram_w(plan, T, acc)
 
             def w_topic(i, carry):
                 W, key = carry
@@ -702,8 +398,7 @@ def make_masked_gram_sweep(cfg: SweepConfig, backend: str = 'segsum',
     return jax.jit(sweep)
 
 
-def _make_panel_sweep(cfg: SweepConfig, backend: str, interpret: bool,
-                      panel: int):
+def _make_panel_sweep(cfg: SweepConfig, panel: int):
     """Panel-tiled Gram-phase sweep body (see make_masked_gram_sweep):
     static python loops over reps and k-panels, a fori_loop inside each
     panel. The contraction tiles Γ[t0:t0+p] depend only on the FROZEN
@@ -711,7 +406,6 @@ def _make_panel_sweep(cfg: SweepConfig, backend: str, interpret: bool,
     Gauss-Seidel sequence — topic t still reads every other topic's
     current value through its own Γ/Θ row."""
     k = cfg.k
-    gA, gPanel, gC, gWPanel = _panel_backends(backend)
 
     def sweep(plan, W, T, key, resets_left, reset_key, *extras):
         w_row_sum_vec = (extras[0].reshape(-1)
@@ -720,7 +414,7 @@ def _make_panel_sweep(cfg: SweepConfig, backend: str, interpret: bool,
                                              cfg.matmul_precision)
 
         if not cfg.fix_T:
-            A = gA(plan, W, acc, interpret)
+            A = _seg_gram_t_A(plan, W, acc)
             for _rep in range(cfg.inner_reps):
                 for t0 in range(0, k, panel):
                     p = min(panel, k - t0)
@@ -734,7 +428,7 @@ def _make_panel_sweep(cfg: SweepConfig, backend: str, interpret: bool,
                     # values; the bitwise panel-parity tests pin that).
                     (T, key), W_seq = lax.optimization_barrier(
                         ((T, key), W))
-                    Gpan = gPanel(plan, W_seq, t0, p, acc, interpret)
+                    Gpan = _seg_gram_t_panel(plan, W_seq, t0, p, acc)
 
                     def t_topic(j, carry, t0=t0, Gpan=Gpan):
                         T, key = carry
@@ -767,7 +461,7 @@ def _make_panel_sweep(cfg: SweepConfig, backend: str, interpret: bool,
                     T, key = lax.fori_loop(0, p, t_topic, (T, key))
 
         if not cfg.fix_W:
-            C = gC(plan, T, acc, interpret)
+            C = _seg_gram_w_C(plan, T, acc)
             for _rep in range(cfg.inner_reps):
                 for t0 in range(0, k, panel):
                     p = min(panel, k - t0)
@@ -775,7 +469,7 @@ def _make_panel_sweep(cfg: SweepConfig, backend: str, interpret: bool,
                     # read only the frozen T)
                     (W, key), T_seq = lax.optimization_barrier(
                         ((W, key), T))
-                    Hpan = gWPanel(plan, T_seq, t0, p, acc, interpret)
+                    Hpan = _seg_gram_w_panel(plan, T_seq, t0, p, acc)
 
                     def w_topic(j, carry, t0=t0, Hpan=Hpan):
                         W, key = carry
@@ -819,8 +513,7 @@ def _make_panel_sweep(cfg: SweepConfig, backend: str, interpret: bool,
     return jax.jit(sweep)
 
 
-def make_masked_gram_objective(backend='segsum', interpret=None,
-                               reg_w_l2=0.0, reg_t_l2=0.0,
+def make_masked_gram_objective(reg_w_l2=0.0, reg_t_l2=0.0,
                                reg_w_l1=0.0, reg_t_l1=0.0,
                                panel=None):
     """Masked objective through the Gram identity::
@@ -828,31 +521,23 @@ def make_masked_gram_objective(backend='segsum', interpret=None,
         ‖√M ⊙ (X − WT)‖² = Σ m x² − 2 Σ_t w_tᵀ C[t]
                            + Σ_{t,s} w_tᵀ Θ[t,s] w_s
 
-    One C + one Θ contraction per evaluation — O(chunks·k²) MXU flops
-    instead of the O(nnz·k) gather stream of
+    One C + one Θ contraction per evaluation instead of the O(nnz·k) gather stream of
     ``make_masked_sparse_objective``. Exact (same bilinear form); the
     f32 Gram route and the gather route agree to accumulation roundoff.
     ``panel``: accumulate the quadratic form in (panel, k, n) Θ tiles
     (matching the panel sweep's memory ceiling) instead of the whole
     (k², n) tensor.
     """
-    if interpret is None:
-        interpret = _interpret_default()
-    if panel is None:
-        gram_w = _backends(backend)[1]
-    else:
-        gC, gWPanel = _panel_backends(backend)[2:]
-
     def objective(plan, W, T):
         _, acc, _ = resolve_mixed_dtypes(W.dtype, W.dtype)
         Wa = W.astype(acc)
         if panel is None:
-            C, H = gram_w(plan, T, acc, interpret)
+            C, H = _seg_gram_w(plan, T, acc)
             cross = jnp.sum(C * Wa.T)
             quad = jnp.einsum('tsi,it,is->', H, Wa, Wa)
         else:
             k = T.shape[0]
-            C = gC(plan, T, acc, interpret)
+            C = _seg_gram_w_C(plan, T, acc)
             cross = jnp.sum(C * Wa.T)
             quad = jnp.zeros((), acc)
             for t0 in range(0, k, panel):
@@ -862,7 +547,7 @@ def make_masked_gram_objective(backend='segsum', interpret=None,
                 # accumulator the scheduler hoists every panel live at
                 # once (the panel-sweep 18.8 GB failure mode)
                 quad, T_seq = lax.optimization_barrier((quad, T))
-                Hpan = gWPanel(plan, T_seq, t0, p, acc, interpret)
+                Hpan = _seg_gram_w_panel(plan, T_seq, t0, p, acc)
                 quad = quad + jnp.einsum(
                     'tsi,it,is->', Hpan, Wa[:, t0:t0 + p], Wa)
         obj = 0.5 * (plan.sum_mx2 - 2.0 * cross + quad)

@@ -7,30 +7,18 @@ through exactly two contractions per sweep — ``WᵀX`` before the T-phase
 and ``X Tᵀ`` before the W-phase — and everything else involves only the
 small dense factors.
 
-TPU-specific design (round 2, measured in ``benchmarks/exp_sparse.py`` at
-50k×30k 0.5% k=128):
+Design:
 
-1. **The BCOO contractions are scatter-bound and invariant to layout
-   tricks.** Measured (DCE-proof, loop-carried operands): ``WᵀX`` 76 ms
-   and ``X Tᵀ`` 140 ms; sort order, uniqueness flags, BCSR, transposed
-   coordinate copies, and bf16 data all change NOTHING (an earlier 6×
-   bf16 reading was a loop-hoisting measurement artifact). XLA's TPU
-   gather/scatter runs ~30-50 GB/s — this is the hardware-honest cost of
-   O(nnz)-memory NMF on an MXU machine, which is why the driver prefers
-   the on-device-densify path whenever the dense form fits HBM.
-2. **Gram-blocked Gauss-Seidel topic loops** (same treatment as the dense
-   sweep): the frozen factor's Gram is computed once per phase and the
-   per-topic corrections touch only a ``(B, m)`` in-block delta slab
-   instead of re-reading the whole factor; with no per-topic simplex
-   projection the loops run as the fused VMEM-resident Pallas GS kernels
-   (``ops/dense_pallas._gs_call``).
-
-A 1M×100k TF-IDF corpus at 1% density is ~8 GB as BCOO vs 400 GB dense:
-this path runs single-chip what the dense path cannot hold even sharded.
-(When the DENSE form does fit device HBM, the driver instead transfers
-the compressed form and densifies ON DEVICE — one O(nnz) scatter — and
-runs the dense hybrid sweep, which is strictly faster on the MXU; this
-module is the beyond-HBM path.)
+1. **The two contractions are BCOO gather/scatter** (XLA's sparse
+   lowering). When the DENSE form fits device memory the
+   driver instead transfers the compressed form, densifies ON DEVICE —
+   one O(nnz) scatter — and runs the dense phase sweep, whose GEMMs are
+   faster; this module is the beyond-memory path. A 1M×100k TF-IDF
+   corpus at 1% density is ~8 GB as BCOO vs 400 GB dense.
+2. **Gauss-Seidel topic loops** are the dense phase sweep's
+   (:func:`rri_nmf_tpu.ops.dense_phase.gs_panel`): the frozen factor's
+   Gram is computed once per phase, and the loop runs as the Triton
+   kernel or the Gram-blocked XLA loop (``gs``).
 
 Restrictions (asserted): unweighted (no mask — the masked path maintains a
 dense residual by construction), ``update_order='phase'``,
@@ -53,11 +41,9 @@ import numpy as np
 from jax import lax
 from jax.experimental import sparse as jsparse
 
-from rri_nmf_tpu.ops.sweep_xla import (SweepConfig, _gram_block_size,
-                                       resolve_mixed_dtypes)
-from rri_nmf_tpu.optimization import qf_min_scalar_c
-from rri_nmf_tpu.matrixops import (_proj_simplex_core,
-    reproject_row_if_drifted)
+from rri_nmf_tpu.matrixops import _proj_simplex_core
+from rri_nmf_tpu.ops.dense_phase import gs_panel, phase_bounds
+from rri_nmf_tpu.ops.sweep_xla import SweepConfig, resolve_mixed_dtypes
 
 
 def to_bcoo(X, dtype=None):
@@ -80,128 +66,23 @@ def supports_sparse(cfg: SweepConfig) -> bool:
             and not cfg.store_gradients and cfg.dp_sigma is None)
 
 
-def gs_topics_blocked(N, F, G, *, k, B, reg_l1, reg_l2, qf_s, qf_ub,
-                      reproject_sum, acc, dtype, reps=1, valid_cols=None,
-                      col_mask=None):
-    """Gram-blocked sequential topic updates over the rows of F (k, m):
-    ``F[t] <- qf_min(N[t] - Σ_{s≠t} G[t,s] F[s], G[t,t])``; exact
-    Gauss-Seidel (same math as the dense sweep's blocked phases). Shared by
-    the single-device sparse sweep and the shard_map'd mesh sparse sweep
-    (where N, G arrive already psum'd and the columns of F are local).
-
-    ``reproject_sum``: when set, rows whose sum drifted from it are
-    re-projected onto the simplex (the per-iteration T projection).
-
-    ``reps``: extra full GS passes over the k topics; N and G are
-    constant through the phase, so each pass is another exact cyclic BCD
-    sweep (``SweepConfig.inner_reps``).
-
-    Padded-column handling (mesh sweeps hand over TILE/grid-padded
-    rows; without it simplex projections LEAK mass into the ghost
-    columns — the Duchi threshold spreads the sum-deficit uniformly —
-    and negative L1 grows them, polluting the next phase's psum'd Gram):
-
-    - ``valid_cols`` (static int): solve/project only the first
-      ``valid_cols`` entries of each row, keep ghosts exactly zero —
-      bit-identical to the single-device unpadded solve. Use whenever
-      the true column count is device-invariant (tp == 1, which the
-      support gates guarantee for every projecting config).
-    - ``col_mask`` ((m,) bool array, may be traced): zero ghost entries
-      after the qf solve. Exact for projection-free configs only (a
-      simplex projection must instead exclude ghosts from its support,
-      so combining ``col_mask`` with ``qf_s``/``reproject_sum`` is
-      rejected); covers tp > 1 where the valid count varies per rank.
-    """
-    m = F.shape[1]
-    mv = m if valid_cols is None else int(valid_cols)
-    assert col_mask is None or (qf_s is None and reproject_sum is None), \
-        'col_mask cannot express a padded simplex projection; pass ' \
-        'valid_cols (tp == 1) instead'
-    diag = jnp.diagonal(G)
-
-    def topic_body(i, carry):
-        F, C, F0, D, bs = carry
-        t = bs + i
-        g_blk = lax.dynamic_slice(G, (t, bs), (1, B))[0]
-        corr = (C[i] + jnp.dot(g_blk, D)
-                - g_blk[i] * F0[i].astype(acc))
-        numer = N[t] - corr - reg_l1
-        denom = diag[t] + reg_l2
-        x, _ = qf_min_scalar_c(-numer[:mv], denom, s=qf_s, ub=qf_ub)
-        if mv != m:
-            x = jnp.zeros((m,), x.dtype).at[:mv].set(x)
-        elif col_mask is not None:
-            x = jnp.where(col_mask, x, 0)
-        F = F.at[t].set(x.astype(dtype))
-        if reproject_sum is not None:
-            # drift check over the (mv,) unpadded row only (padding is
-            # exactly zero, so the sum is identical to the full row's)
-            F = F.at[t, :mv].set(reproject_row_if_drifted(
-                F[t, :mv], reproject_sum, dtype))
-        D = D.at[i].set((F[t] - F0[i]).astype(acc))
-        return F, C, F0, D, bs
-
-    def block_body(bi, F):
-        bs = (bi % (k // B)) * B
-        Gblk = lax.dynamic_slice(G, (bs, 0), (B, k))
-        C = jnp.dot(Gblk, F, preferred_element_type=acc)
-        F0 = lax.dynamic_slice(F, (bs, 0), (B, m))
-        D = jnp.zeros((B, m), acc)
-        F, C, F0, D, bs = lax.fori_loop(
-            0, B, topic_body, (F, C, F0, D, bs), unroll=True)
-        return F
-
-    return lax.fori_loop(0, reps * (k // B), block_body, F)
-
-
 @lru_cache(maxsize=16)
-def make_sparse_sweep(cfg: SweepConfig, gs_kernels=False, interpret=False,
-                      gemm_dtype=None, mxu=False):
+def make_sparse_sweep(cfg: SweepConfig, gs='xla', gemm_dtype=None):
     """Phase-order sweep over a BCOO X. Same call signature as
     ``make_sweep`` (without mask extras)::
 
         sweep(X_bcoo, W, T, key, resets_left, reset_key[, w_row_sum_vec])
 
-    ``gs_kernels=True`` runs the Gauss-Seidel topic loops as the fused
-    Pallas kernels (TPU; requires no per-topic T projection — the driver
-    gates this). ``gemm_dtype=jnp.bfloat16`` runs the two sparse
-    contractions with bf16 inputs (~6× faster TPU gather/scatter; the
-    same input rounding the dense path's default f32 matmul applies) —
-    the Gauss-Seidel updates stay in the accumulation dtype.
-
-    ``mxu=True``: the sweep's ``X`` argument is a
-    :class:`rri_nmf_tpu.ops.sparse_mxu.SparseMXUPlan` (tile-bucketed
-    chunks, pipelined one-hot kernel) or a
-    :class:`rri_nmf_tpu.ops.sparse_dma.SparseDMAPlan` (manual-DMA
-    kernel: one grid step per output tile, double-buffered factor
-    fetches) instead of a BCOO, and the two contractions run as the
-    matching Pallas kernel instead of XLA's gather/scatter lowering —
-    the beyond-HBM fast path (``gemm_dtype`` is ignored; the kernels
-    accumulate in the factor dtype's accumulation type).
+    ``gs`` picks the Gauss-Seidel topic-loop implementation
+    (:func:`rri_nmf_tpu.ops.dense_phase.gs_panel`; a projected T-phase
+    always runs the XLA loop). ``gemm_dtype=jnp.bfloat16`` runs the two
+    sparse contractions with bf16 inputs — the Gauss-Seidel updates stay
+    in the accumulation dtype.
     """
     assert supports_sparse(cfg), 'config not supported by the sparse sweep'
     k = cfg.k
-    B = _gram_block_size(k)
-    use_pallas_gs = bool(gs_kernels) and not (cfg.project_T_each_iter
-                                              and cfg.t_row_sum)
-
-    def _gs_pallas(N, F, G, reg_l1, reg_l2, bound, ub_vec, acc, dtype):
-        from rri_nmf_tpu.ops.dense_pallas import _gs_call, _pick_block, BD
-        m = F.shape[1]
-        mpad, blk = _pick_block(m, BD, k=k,
-                                narrow=jnp.dtype(dtype) != jnp.dtype(acc))
-        diag = jnp.diagonal(G).reshape(k, 1)
-        if mpad != m:
-            N = jnp.zeros((k, mpad), acc).at[:, :m].set(N)
-            F = jnp.zeros((k, mpad), dtype).at[:, :m].set(F)
-        ub = None
-        if ub_vec is not None:
-            ub = jnp.zeros((1, mpad), acc).at[0, :m].set(
-                ub_vec.astype(acc))
-        F = _gs_call(k, blk, mpad // blk, reg_l1, reg_l2, bound, acc, dtype,
-                     G, diag, N, F, ub=ub, interpret=interpret,
-                     reps=cfg.inner_reps)
-        return F[:, :m]
+    t_bound, w_bound = phase_bounds(cfg)
+    proj_t = bool(cfg.t_row_sum and cfg.project_T_each_iter)
 
     def sweep(X, W, T, key, resets_left, reset_key, *extras):
         w_row_sum_vec = (extras[0].reshape(-1)
@@ -210,91 +91,49 @@ def make_sparse_sweep(cfg: SweepConfig, gs_kernels=False, interpret=False,
         # forbids x_dtype here), so the shared rule resolves on W alone
         dtype, acc, _ = resolve_mixed_dtypes(W.dtype, W.dtype,
                                              cfg.matmul_precision)
-        if mxu:
-            Xc = X
-            cd = acc
-        elif gemm_dtype is not None and X.data.dtype != gemm_dtype:
+        if gemm_dtype is not None and X.data.dtype != gemm_dtype:
             # materialize the converted data (optimization_barrier): if the
             # cast fuses into the contraction's gather, the gather reads
-            # the 4-byte buffer and the fast 2-byte scatter path is lost
+            # the 4-byte buffer
             Xc = jsparse.BCOO(
                 (lax.optimization_barrier(X.data.astype(gemm_dtype)),
                  X.indices), shape=X.shape,
                 indices_sorted=X.indices_sorted,
                 unique_indices=X.unique_indices)
             cd = gemm_dtype
-        elif gemm_dtype is not None:
-            Xc = X
-            cd = gemm_dtype
         else:
             Xc = X
-            cd = acc
+            cd = gemm_dtype if gemm_dtype is not None else acc
 
         def _cast_dense(A):
             # materialize casts feeding the sparse contraction: a fused
-            # cast makes the gather read the wide buffer (slow path)
+            # cast makes the gather read the wide buffer
             if A.dtype == cd:
                 return A
             return lax.optimization_barrier(A.astype(cd))
 
         if not cfg.fix_T:
-            if mxu:
-                from rri_nmf_tpu.ops import sparse_dma, sparse_mxu
-                wtx = (sparse_dma.contract_wtx
-                       if isinstance(X, sparse_dma.SparseDMAPlan)
-                       else sparse_mxu.contract_wtx)
-                WX = wtx(X, W, acc, interpret)                   # (k, d)
-            else:
-                WX = jsparse.bcoo_dot_general(
-                    Xc, _cast_dense(W),
-                    dimension_numbers=(((0,), (0,)), ((), ()))
-                    ).T.astype(acc)                              # (k, d)
+            WX = jsparse.bcoo_dot_general(
+                Xc, _cast_dense(W),
+                dimension_numbers=(((0,), (0,)), ((), ()))
+                ).T.astype(acc)                              # (k, d)
             G = jnp.dot(W.T, W, preferred_element_type=acc)
-            if use_pallas_gs:
-                t_bound = (float(cfg.t_row_sum) if cfg.t_row_sum
-                           else float('inf'))
-                T = _gs_pallas(WX, T, G, cfg.reg_t_l1, cfg.reg_t_l2,
-                               t_bound, None, acc, dtype)
-            else:
-                T = gs_topics_blocked(
-                    WX, T, G, k=k, B=B,
-                    reg_l1=cfg.reg_t_l1, reg_l2=cfg.reg_t_l2,
-                    qf_s=cfg.t_update_s, qf_ub=cfg.t_row_sum,
-                    reproject_sum=(cfg.t_row_sum
-                                   if (cfg.t_row_sum
-                                       and cfg.project_T_each_iter)
-                                   else None),
-                    acc=acc, dtype=dtype, reps=cfg.inner_reps)
+            T = gs_panel(WX, T, G, impl=gs, k=k, reg_l1=cfg.reg_t_l1,
+                         reg_l2=cfg.reg_t_l2, ub=t_bound, acc=acc,
+                         dtype=dtype, reps=cfg.inner_reps,
+                         qf_s=cfg.t_update_s,
+                         reproject_sum=cfg.t_row_sum if proj_t else None)
 
         if not cfg.fix_W:
-            if mxu:
-                from rri_nmf_tpu.ops import sparse_dma, sparse_mxu
-                xtt = (sparse_dma.contract_xtt
-                       if isinstance(X, sparse_dma.SparseDMAPlan)
-                       else sparse_mxu.contract_xtt)
-                XT = xtt(X, T, acc, interpret)                   # (k, n)
-            else:
-                XT = jsparse.bcoo_dot_general(
-                    Xc, _cast_dense(T.T),
-                    dimension_numbers=(((1,), (0,)), ((), ()))
-                    ).T.astype(acc)                              # (k, n)
+            XT = jsparse.bcoo_dot_general(
+                Xc, _cast_dense(T.T),
+                dimension_numbers=(((1,), (0,)), ((), ()))
+                ).T.astype(acc)                              # (k, n)
             G2 = jnp.dot(T, T.T, preferred_element_type=acc)
-            if use_pallas_gs:
-                w_bound = (float(cfg.w_row_sum)
-                           if (cfg.w_row_sum is not None
-                               and not cfg.w_row_sum_is_vector)
-                           else float('inf'))
-                Wt = _gs_pallas(XT, W.T, G2, cfg.reg_w_l1, cfg.reg_w_l2,
-                                w_bound, w_row_sum_vec, acc, dtype)
-            else:
-                ub = (w_row_sum_vec if cfg.w_row_sum_is_vector
-                      else cfg.w_row_sum)
-                Wt = gs_topics_blocked(
-                    XT, W.T, G2, k=k, B=B,
-                    reg_l1=cfg.reg_w_l1, reg_l2=cfg.reg_w_l2,
-                    qf_s=None, qf_ub=ub, reproject_sum=None,
-                    acc=acc, dtype=dtype, reps=cfg.inner_reps)
-            W = Wt.T
+            ub = w_row_sum_vec if cfg.w_row_sum_is_vector else w_bound
+            W = gs_panel(XT, W.T, G2, impl=gs, k=k, reg_l1=cfg.reg_w_l1,
+                         reg_l2=cfg.reg_w_l2, ub=ub, acc=acc, dtype=dtype,
+                         reps=cfg.inner_reps).T
 
         if (cfg.project_W_each_iter and not cfg.fix_W
                 and (cfg.w_row_sum is not None or cfg.w_row_sum_is_vector)):
@@ -307,10 +146,9 @@ def make_sparse_sweep(cfg: SweepConfig, gs_kernels=False, interpret=False,
         return W, T, key, resets_left
 
     if cfg.matmul_precision is not None:
-        # honor the explicit precision request exactly like make_sweep
-        # and the dense kernels: the Grams and Gram-blocked correction
-        # dots otherwise run at the default single-bf16-pass precision,
-        # flooring reachable error near 1e-3 (SweepConfig docstring)
+        # honor the explicit precision request exactly like make_sweep:
+        # the Grams and Gram-blocked correction dots otherwise run at the
+        # backend's default precision
         _sweep_body = sweep
 
         def sweep(*args):

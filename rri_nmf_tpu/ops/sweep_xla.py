@@ -1,6 +1,6 @@
 """The RRI / WRRI sweep as a single jitted XLA computation.
 
-This is the TPU-native re-design of the reference's per-topic Python loop
+This is the re-design of the reference's per-topic Python loop
 (reference ``nmf.py:415-478`` with helpers ``_compute_update_T``
 ``nmf.py:633-715``, ``_compute_update_W`` ``nmf.py:718-747``,
 ``_project_and_check_reset_t`` ``nmf.py:750-783``, ``_check_reset_W``
@@ -9,7 +9,7 @@ once; the topic loop is a ``lax.fori_loop`` that preserves the reference's
 Gauss-Seidel ordering exactly (each topic's update sees all earlier topics'
 updates within the same sweep — required for the monotone-descent tests).
 
-TPU-first design decisions (none of these exist in the reference):
+Design decisions (none of these exist in the reference):
 
 1. **T-phase GEMM batching (unweighted RRI).** The reference computes
    ``wX = W[:,t]^T X`` as k separate GEMVs per sweep (``nmf.py:672``). But
@@ -17,15 +17,15 @@ TPU-first design decisions (none of these exist in the reference):
    (scale transfer ``nmf.py:450-452``, the W-update ``nmf.py:469``, resets),
    so at the time topic t reads it, ``W[:,t]`` still holds its value from
    the start of the sweep. Hence all k numerators come from ONE
-   ``W^T X`` GEMM (MXU-friendly, one HBM read of X instead of k), and all k
+   ``W^T X`` GEMM (one device-memory read of X instead of k), and all k
    denominators ``||W[:,t]||^2`` from one column-norm pass. This halves the
-   sweep's HBM traffic and moves half its FLOPs from GEMV to GEMM.
+   sweep's memory traffic and moves half its FLOPs from GEMV to GEMM.
 
 2. **Incremental MASKED residual for the masked WRRI path.** The reference
    rebuilds the full ``R_t = X - W_{-t} T`` per topic — an O(ndk) GEMM per
    topic, O(ndk^2) per sweep, the documented "k times slower" path
    (``nmf.py:355-356,687-693``). Here ``MR = M ⊙ (X - W T)`` is maintained
-   with masked rank-one updates (the rank-2 correction rides the MXU as a
+   with masked rank-one updates (the rank-2 correction runs as a
    2-column GEMM; the mask multiply fuses into the elementwise add), and
    the per-topic quantities follow from the identities::
 
@@ -46,7 +46,7 @@ TPU-first design decisions (none of these exist in the reference):
 3. **Sharding-transparent.** Everything is plain matmuls, reductions, and
    row-local projections; under a ``jax.sharding.Mesh`` with X/W row-sharded
    and T replicated (or X column-sharded too), GSPMD auto-inserts the
-   ``psum``s over ICI for the per-topic inner products. See
+   ``psum``s for the per-topic inner products. See
    ``rri_nmf_tpu.parallel``.
 
 4. **Explicit randomness.** The reference's global
@@ -101,11 +101,11 @@ class SweepConfig:
     store_rows: Optional[Tuple[int, ...]] = None
     # 'interleaved' (reference order: T[t] then W[:,t] per topic) or
     # 'phase' (all T rows, then all W columns — same exact coordinate
-    # minimizations and fixed points, ~(k+1)/2 x less HBM traffic; see the
+    # minimizations and fixed points, ~(k+1)/2 x less memory traffic; see the
     # sweep body). Ignored on the masked path.
     update_order: str = 'interleaved'
     # max-residual reset strategy: True = blockwise scan (O(B*d) temps —
-    # essential near the single-chip HBM ceiling), False = materialize the
+    # essential near the single-device memory ceiling), False = materialize the
     # full residual in one piece. With ``mesh`` set, resets instead run as
     # a shard_map: per-device blockwise residual row norms, psum over the
     # column axis, argmax combined over the row axis — no n×d temporary
@@ -117,10 +117,10 @@ class SweepConfig:
     # sharding-transparent through GSPMD.
     mesh: Optional[Any] = None
     # matmul precision for the sweep's contractions (None = backend
-    # default). On TPU the default f32 dot is a single bf16 MXU pass
-    # (~2^-9 relative noise), which floors the reachable relative
-    # reconstruction error around 1e-3; pass 'float32' to converge below
-    # that (≈1.5x slower GEMMs; see benchmarks/exp_precision.py).
+    # default). On a GPU the default f32 dot runs in TF32 (~2^-11
+    # relative noise), which floors the reachable relative
+    # reconstruction error; pass 'highest' to converge below that
+    # (slower GEMMs).
     matmul_precision: Optional[str] = None
     # Inner Gauss-Seidel repetitions per phase (phase order only). The
     # numerators (WᵀX / X Tᵀ) and the frozen factor's Gram are CONSTANT
@@ -128,8 +128,7 @@ class SweepConfig:
     # times at O(k²·m) each while the O(ndk) X-contraction is paid once —
     # every pass is still exact cyclic BCD on the same subproblems, so
     # descent stays monotone (the accelerated-HALS inner iteration of
-    # Gillis & Glineur 2012, rebuilt for the MXU-cost model where the
-    # GEMM:GS cost gap is widest). Requires reset_topic_method=None for
+    # Gillis & Glineur 2012). Requires reset_topic_method=None for
     # >1 (a reset would invalidate the cached numerator row).
     inner_reps: int = 1
 
@@ -175,7 +174,7 @@ def _w_ub(cfg, w_row_sum_vec):
 
 def resolve_mixed_dtypes(x_dtype, w_dtype, matmul_precision=None):
     """Storage-dtype resolution shared by every dense sweep variant
-    (this module, ``ops.dense_pallas``, ``parallel.sharded_dense``).
+    (this module, ``ops.dense_phase``, ``parallel.sharded_dense``).
 
     Returns ``(dtype, acc, x_narrow)``:
 
@@ -185,10 +184,10 @@ def resolve_mixed_dtypes(x_dtype, w_dtype, matmul_precision=None):
     - ``acc`` — accumulator dtype: float32 whenever the promoted pair is
       16-bit, else the promotion (f64 stays f64 on CPU);
     - ``x_narrow`` — whether the X GEMMs should explicitly down-cast
-      their (small) factor operand to X's dtype for one native bf16 MXU
-      pass. True ONLY for bfloat16 X under DEFAULT matmul precision: the
-      default f32 TPU dot rounds operands to bf16 per pass anyway, so
-      the numerics class is unchanged. float16 is deliberately excluded
+      their (small) factor operand to X's dtype for one native bf16
+      GEMM. True ONLY for bfloat16 X under DEFAULT matmul precision (the
+      default f32 dot already rounds its operands on the tensor cores).
+      float16 is deliberately excluded
       (f16's 65504 max overflows to inf on transiently large factor
       entries, e.g. under negative L1 — promotion handles f16 X safely);
       an explicit ``matmul_precision`` keeps full-precision passes via
@@ -226,7 +225,7 @@ def make_objective(masked: bool, row_weighted: bool,
 
     ``block_rows``: accumulate the residual norm over row blocks of this
     size instead of materializing the full ``W @ T`` product — use for
-    matrices near the HBM budget (the fused form needs one extra n×d
+    matrices near the device memory budget (the fused form needs one extra n×d
     temporary).
     """
     def _res_sq(acc_dt, X, W, T, *extras):
@@ -234,7 +233,7 @@ def make_objective(masked: bool, row_weighted: bool,
         # aren't drowned by quantization noise; the casts sit INSIDE the
         # (possibly blockwise) evaluation so a narrow X is widened one
         # block at a time, never materialized as a full f32 copy (the
-        # bf16-X north-star shape would not fit HBM widened).
+        # bf16-X north-star shape would not fit device memory widened).
         i = 0
         R = (X.astype(acc_dt)
              - jnp.dot(W.astype(acc_dt), T.astype(acc_dt),
@@ -309,9 +308,7 @@ def make_reset_rowcol(cfg: SweepConfig):
     whole factor matrices so the reset can sit inside a ``lax.cond``
     whose carried payload is O(n + d): carrying (W, T) through the
     branch tuples makes XLA materialize fresh copies of both on every
-    topic even when the (rare) reset branch is never taken — measured
-    ~92 µs per cond at the 16384×8192 k=128 TM shape, ~25 ms of a
-    139 ms interleaved sweep (results_round3_tm_interleaved.json)."""
+    topic even when the (rare) reset branch is never taken."""
     method = cfg.reset_topic_method
 
     def _reset_rowcol(X, W, T, t, key, reset_key):
@@ -509,8 +506,7 @@ def make_sweep(cfg: SweepConfig):
         The reset cond carries only the new ``(d,)`` row / ``(n,)``
         column / key — never (W, T): a whole-matrix cond payload makes
         XLA materialize fresh copies of both factors per topic even on
-        the never-taken branch (~92 µs/cond at the 16384×8192 k=128 TM
-        shape; results_round3_tm_interleaved.json). The unconditional
+        the never-taken branch. The unconditional
         write-back of the unchanged row/column is bitwise identity."""
         if method is None:
             # `nt1 > 1e-10 or reset_topic_method is None` always takes the
@@ -598,7 +594,7 @@ def make_sweep(cfg: SweepConfig):
             w_row_sum_vec = None
 
         n, d = X.shape
-        # Mixed precision: with bfloat16/float16 storage (HBM traffic
+        # Mixed precision: with bfloat16/float16 storage (memory traffic
         # halves — X reads dominate the sweep) all reductions, numerators,
         # and subproblem solves run in float32; only the stored factors are
         # low precision. For f32/f64 inputs acc == dtype and nothing
@@ -656,7 +652,7 @@ def make_sweep(cfg: SweepConfig):
                 w = W[:, t]
                 if cfg.masked:
                     # R carries the MASKED residual: both contractions are
-                    # canonical dots (threaded GEMV on CPU, MXU on TPU)
+                    # canonical dots (threaded GEMV on CPU, cuBLAS on GPU)
                     nw = jnp.dot(w * w, W_mat,
                                  preferred_element_type=acc)  # (d,) vector
                     wR = jnp.dot(w, R, preferred_element_type=acc) \
@@ -728,12 +724,19 @@ def make_sweep(cfg: SweepConfig):
 
                 if cfg.masked:
                     # MR <- MR + M ⊙ (w_old t_old^T - w_eff t_new^T): the
-                    # rank-2 correction rides the MXU as one (n,2)x(2,d)
+                    # rank-2 correction runs as one (n,2)x(2,d)
                     # GEMM; the mask multiply fuses into the add. Uses the
-                    # STORED (dtype) t_new so MR tracks T exactly.
+                    # STORED (dtype) t_new so MR tracks T exactly. The two
+                    # products nearly cancel, so the GEMM runs at full
+                    # precision: a TF32 rounding of each (the GPU's
+                    # default for f32) accumulates into MR over the sweep
+                    # and drove the dense-mask fit's objective up ninefold
+                    # at the MovieLens-1M shape.
                     U2 = jnp.stack([w, -w_eff], axis=1)
                     V2 = jnp.stack([t_old, T[t]], axis=0)
-                    R = R + (W_mat * (U2 @ V2)).astype(dtype)
+                    R = R + (W_mat * jnp.dot(
+                        U2, V2, precision=lax.Precision.HIGHEST)
+                    ).astype(dtype)
 
                 W, T, R, key, resets_left = _project_and_check_reset_t(
                     X, W, T, R, t, key, resets_left, reset_key, W_mat)
@@ -795,7 +798,7 @@ def make_sweep(cfg: SweepConfig):
         # (partially updated) factor, which is handled by processing topics
         # in blocks of B: one (B,k)×(k,d) GEMM against the block-start
         # factor + per-topic corrections that touch only the (B,d) in-block
-        # delta slab. Per-topic HBM traffic drops from O((n+d)·k) full
+        # delta slab. Per-topic memory traffic drops from O((n+d)·k) full
         # factor re-reads (the reference's k GEMVs, nmf.py:672-676,729-734)
         # to O(B·d): the sweep reads X twice and the factors ~(B + k/B)
         # times instead of k+1 times each. Topic resets (rare, inside
@@ -855,7 +858,7 @@ def make_sweep(cfg: SweepConfig):
                 D = jnp.zeros((B, d), acc)
                 # unrolled: the in-block ops are tiny (k- and B-vectors
                 # against the (B,d) delta slab); loop-control latency would
-                # dominate them at TPU dispatch granularity
+                # dominate them at accelerator dispatch granularity
                 W, T, G, C, T_blk0, D, bs, key, resets_left = lax.fori_loop(
                     0, B, topic_body,
                     (W, T, G, C, T_blk0, D, bs, key, resets_left),
@@ -978,26 +981,15 @@ def make_sweep(cfg: SweepConfig):
 
 
 @lru_cache(maxsize=64)
-def make_multi_sweep(cfg: SweepConfig, n_sweeps: int, pallas=False,
-                     interpret=False):
-    """``n_sweeps`` full sweeps as ONE jitted fori_loop.
+def make_multi_sweep(sweep, n_sweeps: int):
+    """``n_sweeps`` applications of a sweep function (any of the
+    ``make_*sweep`` builders' results, same call signature without the
+    gradient-store variant) as ONE jitted fori_loop.
 
     For production fits with no per-iteration host work (no objective
-    tracking / early stopping / callbacks) this collapses n dispatches into
-    one, which matters on remote-hosted TPUs where each dispatch pays
-    tunnel latency. Same signature as :func:`make_sweep` minus the
-    gradient-store variant (unsupported here).
+    tracking / early stopping / callbacks) this collapses n dispatches and
+    host synchronizations into one.
     """
-    assert not cfg.store_gradients, 'grouped sweeps cannot store gradients'
-    if pallas and cfg.masked:
-        from rri_nmf_tpu.ops.sweep_pallas import make_masked_sweep_pallas
-        sweep = make_masked_sweep_pallas(cfg, interpret=interpret)
-    elif pallas:
-        from rri_nmf_tpu.ops.dense_pallas import \
-            make_dense_phase_sweep_pallas
-        sweep = make_dense_phase_sweep_pallas(cfg, interpret=interpret)
-    else:
-        sweep = make_sweep(cfg)
 
     def multi(X, W, T, key, resets_left, reset_key, *extras):
         def body(i, carry):

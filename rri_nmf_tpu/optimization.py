@@ -1,6 +1,6 @@
 """Per-topic quadratic subproblem solver and stopping conditions.
 
-TPU-native equivalent of the reference's ``optimization.py``
+Equivalent of the reference's ``optimization.py``
 (/root/reference/src/rri_nmf/optimization.py). The core is ``qf_min``:
 the closed-form solution of
 

@@ -1,14 +1,10 @@
 """Mesh-sharded Gram-phase masked (WRRI) sweep.
 
 Distribution of :mod:`rri_nmf_tpu.ops.sweep_masked_gram` (see that module
-for the Gram-tensor algebra and the measured ~85x-vs-interleaved record
-that motivates it). Round 4 left the Gram path single-device: a
-distributed recommender fit fell back to the interleaved O(nnz) mesh
-sweep (``parallel/masked_sparse_mesh.py``), whose per-topic
-gather/segment-sum streams measure ~0.4 GB/s effective on TPU — i.e. the
-mesh path was ~85x slower per sweep than ONE chip's Gram path at the
-round-4 record shape. This module closes that gap (round-5 VERDICT
-item 2).
+for the Gram-tensor algebra): the Gram path on a ``(dp, 1)`` mesh, in
+place of the interleaved O(nnz) mesh sweep
+(``parallel/masked_sparse_mesh.py``) and its per-topic
+gather/segment-sum streams.
 
 Layout — identical to the interleaved masked mesh sweep:
 
@@ -32,19 +28,12 @@ Communication — ONE psum per T-phase, NOTHING in the W-phase:
   TOPIC).
 - The W-phase tensors ``C = (M⊙X)Tᵀ`` and ``Θ[t,s] = M (t_t ⊙ t_s)``
   are row-keyed: fully device-local under row partitioning. The W-phase
-  moves ZERO bytes over ICI.
+  moves ZERO bytes between devices.
 
-So a sweep's ICI traffic is ``(k + k(k+1)/2) · d`` accumulator words,
-independent of nnz and of n — the Γ/Θ chunk contractions themselves are
-embarrassingly row-parallel (they are plan-partitioned chunk sums).
-
-Backends per device (same two as the single-device module): ``'mxu'``
-runs the tile-bucketed one-hot chunk kernel on per-device
-:class:`~rri_nmf_tpu.ops.sparse_mxu.ContractPlan` segments under
-``shard_map`` (plans are padded to a common chunk count across devices —
-padding groups replicate the last real group's output tile with zero
-values, so they accumulate exact zeros); ``'segsum'`` is the f64-exact
-XLA segment-sum oracle for the CPU suite.
+So a sweep's collective traffic is ``(k + k(k+1)/2) · d`` accumulator
+words, independent of nnz and of n — the Γ/Θ segment sums themselves are
+embarrassingly row-parallel. Γ and Θ are symmetric in (t, s), so only
+the k(k+1)/2 unique pairs are contracted.
 
 Restrictions beyond the single-device Gram sweep: no per-row
 ``w_row_sum`` vector (it would need dp-aligned padding), matching the
@@ -59,7 +48,7 @@ not reference parity.
 """
 
 from functools import lru_cache
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import dataclasses
 import jax
@@ -76,139 +65,57 @@ except ImportError:  # pragma: no cover
 from rri_nmf_tpu.matrixops import (_proj_simplex_core,
     reproject_row_if_drifted)
 from rri_nmf_tpu.optimization import qf_min_vector_c
-from rri_nmf_tpu.ops.sparse_mxu import ContractPlan, _widen_i32
-from rri_nmf_tpu.ops.sweep_masked_gram import (
-    MAX_PREFETCH_CHUNKS, TILE, _interpret_default, _round8, _sym_pairs)
 from rri_nmf_tpu.ops.sweep_masked_sparse import _PAD_TO
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig, resolve_mixed_dtypes
 from rri_nmf_tpu.parallel.masked_sparse_mesh import ShardedMaskedCOO
 
-# observation-chunk size for the segsum backend's (chunk, k²) temporaries
+# observation-chunk size for the segment sums' (chunk, k²) temporaries
 _SEG_CHUNK = 1 << 16
+
+
+@lru_cache(maxsize=32)
+def _sym_pairs(k):
+    """Static index maps for the symmetric Gram trick: Γ[t, s] = Γ[s, t]
+    (and Θ likewise), so only the k(k+1)/2 unique (t ≤ s) Khatri-Rao
+    rows are contracted and the full (k, k, ·) tensor is reconstructed
+    by a gather. Returns ``(idx_t, idx_s, unpack)`` with
+    ``unpack[t·k+s]`` = the pair row of ``(min(t,s), max(t,s))``. NumPy
+    constants (NOT jnp): the first call can happen inside a jit trace,
+    and a cached device array created there would leak a tracer into
+    every later trace."""
+    idx_t, idx_s = np.triu_indices(k)
+    pair_of = np.zeros((k, k), np.int32)
+    pair_of[idx_t, idx_s] = np.arange(idx_t.size, dtype=np.int32)
+    pair_of[idx_s, idx_t] = pair_of[idx_t, idx_s]
+    return (idx_t.astype(np.int32), idx_s.astype(np.int32),
+            pair_of.reshape(-1))
 
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class ShardedMaskedGramPlan:
-    """Row-block partitioned observed set + per-device contraction plans.
-
-    ``coo`` is the :class:`ShardedMaskedCOO` block grid (the segsum
-    backend's input and the objective fallback). With ``backend='mxu'``,
-    ``m_t``/``m_w`` are tuples of per-SEGMENT stacked
-    :class:`ContractPlan`s whose every field carries a leading ``dp``
-    axis (sharded ``P(dp, None)``); ``mx_t_vals``/``mx_w_vals`` are
-    matching tuples of ``(dp, ·)`` value arrays (mask ⊙ X) in the same
-    chunk-slot layout. ``sum_mx2`` is the replicated ``Σ m x²`` scalar.
-    """
+    """Row-block partitioned observed set: ``coo`` is the
+    :class:`ShardedMaskedCOO` block grid, ``sum_mx2`` the replicated
+    ``Σ m x²`` scalar."""
     coo: ShardedMaskedCOO
-    m_t: Optional[Any]
-    m_w: Optional[Any]
-    mx_t_vals: Optional[Any]
-    mx_w_vals: Optional[Any]
     sum_mx2: jnp.ndarray
     shape: Tuple[int, int]
     n_loc: int
     nnz: int
-    group: int
-    backend: str
 
     def tree_flatten(self):
-        return ((self.coo, self.m_t, self.m_w, self.mx_t_vals,
-                 self.mx_w_vals, self.sum_mx2),
-                (self.shape, self.n_loc, self.nnz, self.group,
-                 self.backend))
+        return (self.coo, self.sum_mx2), (self.shape, self.n_loc, self.nnz)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children, shape=aux[0], n_loc=aux[1], nnz=aux[2],
-                   group=aux[3], backend=aux[4])
+        return cls(*children, shape=aux[0], n_loc=aux[1], nnz=aux[2])
 
 
-def _pad_plan_np(arrays, ngroups_to, group, C):
-    """Pad a host plan (``_plan_direction_np`` output) to ``ngroups_to``
-    groups by replicating the LAST group's output tile with zero values
-    (``ftile = 0``). A zero-valued revisit of an already-visited tile
-    accumulates an exact zero — unlike padding with tile 0, which would
-    RE-INITIALIZE tile 0's partial if the padding group's ``is_first``
-    fired after real groups wrote it."""
-    vals, glo, slo, ftile, otile, mask = arrays
-    ngroups = otile.shape[0]
-    extra = ngroups_to - ngroups
-    if extra == 0:
-        return arrays
-    gc = group * C
-    vals = np.concatenate(
-        [vals, np.zeros((1, extra * gc), vals.dtype)], axis=1)
-    glo = np.concatenate(
-        [glo, np.zeros((1, extra * gc), glo.dtype)], axis=1)
-    slo = np.concatenate(
-        [slo, np.zeros((1, extra * gc), slo.dtype)], axis=1)
-    ftile = np.concatenate(
-        [ftile, np.zeros(extra * group, ftile.dtype)])
-    otile = np.concatenate(
-        [otile, np.full(extra, otile[-1], otile.dtype)])
-    return vals, glo, slo, ftile, otile, mask
-
-
-def _stack_segments(per_dev, group, C, n_stiles, mesh, dtype,
-                    ngroups_to=None, put=None):
-    """Per-device host plans → tuple of per-segment stacked
-    :class:`ContractPlan`s (every field (dp, ·), sharded ``P(dp, None)``)
-    plus the matching tuple layout offsets. All devices are padded to a
-    common group count, then split at identical
-    :data:`MAX_PREFETCH_CHUNKS` boundaries so each segment is one
-    uniformly-shaped ``pallas_call`` under shard_map. Each segment's
-    touched-tile mask is recomputed per device from its own otile slice
-    (padding groups revisit a real tile with zero values — marking it
-    costs nothing).
-
-    ``ngroups_to``/``put`` support the multi-controller assembly
-    (``parallel.multihost.distribute_masked_coo``): a GLOBAL padded
-    group count (allgathered max) and a local-slab→global-array
-    placement function; defaults are the single-controller local max and
-    ``jax.device_put``."""
-    dp_ax = mesh.axis_names[0]
-    s2 = NamedSharding(mesh, P(dp_ax, None))
-    if put is None:
-        def put(local):
-            return jax.device_put(local, s2)
-    if ngroups_to is None:
-        ngroups_to = max(a[4].shape[0] for a in per_dev)
-    max_g = MAX_PREFETCH_CHUNKS // group
-    padded = [_pad_plan_np(a, ngroups_to, group, C) for a in per_dev]
-    spad = n_stiles * TILE
-    segs = []
-    for g0 in range(0, ngroups_to, max_g):
-        g1 = min(g0 + max_g, ngroups_to)
-        gc0, gc1 = g0 * group * C, g1 * group * C
-        vals = np.stack([a[0][0, gc0:gc1] for a in padded])
-        glo = np.stack([a[1][0, gc0:gc1] for a in padded])
-        slo = np.stack([a[2][0, gc0:gc1] for a in padded])
-        ftile = np.stack([a[3][g0 * group:g1 * group] for a in padded])
-        otile = np.stack([a[4][g0:g1] for a in padded])
-        masks = []
-        for a in padded:
-            mk = np.zeros((n_stiles, 1), dtype)
-            mk[np.unique(a[4][g0:g1])] = 1.0
-            masks.append(np.ascontiguousarray(np.broadcast_to(
-                mk, (n_stiles, TILE)).reshape(-1)))
-        mask = np.stack(masks)
-        segs.append(ContractPlan(
-            put(vals), _widen_i32(put(glo)), _widen_i32(put(slo)),
-            put(ftile), put(otile), put(mask)))
-    return tuple(segs)
-
-
-def partition_masked_gram(X, W_mat, mesh, dtype, backend=None, group=8):
+def partition_masked_gram(X, W_mat, mesh, dtype):
     """Host-side: (X, scipy-sparse W_mat) → :class:`ShardedMaskedGramPlan`
     on ``mesh`` (which must be (dp, 1)). Row-block partition identical to
-    :func:`rri_nmf_tpu.parallel.masked_sparse_mesh.partition_masked_coo`;
-    with ``backend='mxu'`` (TPU default) per-device chunk plans for the
-    four Gram contractions ride along."""
-    from rri_nmf_tpu.ops.sparse_mxu import _plan_direction_np
+    :func:`rri_nmf_tpu.parallel.masked_sparse_mesh.partition_masked_coo`."""
     from rri_nmf_tpu.ops.sweep_masked_sparse import masked_coo_host_arrays
-    if backend is None:
-        backend = 'mxu' if jax.default_backend() == 'tpu' else 'segsum'
     dp_size, tp_size = mesh.devices.shape
     assert tp_size == 1, 'masked Gram mesh sweeps are row-partitioned'
     rows_a, cols_a, x_a, m_a, (n, d), nnz = \
@@ -252,50 +159,9 @@ def partition_masked_gram(X, W_mat, mesh, dtype, backend=None, group=8):
         jnp.asarray(np.float64(m).dot(np.float64(x) ** 2),
                     dtype=jnp.promote_types(dtype, jnp.float32)),
         NamedSharding(mesh, P()))
-    if backend == 'segsum':
-        return ShardedMaskedGramPlan(
-            coo=coo, m_t=None, m_w=None, mx_t_vals=None, mx_w_vals=None,
-            sum_mx2=sum_mx2, shape=(n, d), n_loc=n_loc, nnz=int(nnz),
-            group=group, backend='segsum')
-    if backend != 'mxu':
-        raise ValueError("backend must be 'mxu' or 'segsum', got %r"
-                         % (backend,))
-
-    n_rt_loc = -(-n_loc // TILE)
-    n_ct = -(-d // TILE)
-    ndt = np.dtype(dtype)
-    mx = (m * x).astype(ndt, copy=False)
-    mv = m.astype(ndt, copy=False)
-
-    def _per_dev(vals_src, g_rows, g_cols, ngt, nst):
-        out = []
-        for b in range(dp_size):
-            lo, hi = starts[b], starts[b + 1]
-            out.append(_plan_direction_np(
-                g_rows[lo:hi], g_cols[lo:hi], vals_src[lo:hi],
-                ngt, nst, TILE, group, ndt))
-        return out
-
-    rloc = (rows % n_loc).astype(np.int64)
-    # t-direction: gather from local row tiles, scatter into column tiles
-    m_t = _stack_segments(_per_dev(mv, rloc, cols, n_rt_loc, n_ct),
-                          group, TILE, n_ct, mesh, ndt)
-    mxt = _stack_segments(_per_dev(mx, rloc, cols, n_rt_loc, n_ct),
-                          group, TILE, n_ct, mesh, ndt)
-    # w-direction: gather from column tiles, scatter into local row tiles
-    m_w = _stack_segments(_per_dev(mv, cols, rloc, n_ct, n_rt_loc),
-                          group, TILE, n_rt_loc, mesh, ndt)
-    mxw = _stack_segments(_per_dev(mx, cols, rloc, n_ct, n_rt_loc),
-                          group, TILE, n_rt_loc, mesh, ndt)
-    # the bucketing is deterministic in (g, s): the mask-valued and
-    # (mask⊙X)-valued plans land in identical slot layouts, so only the
-    # vals arrays need to ride along for A/C
-    mx_t_vals = tuple(p.vals for p in mxt)
-    mx_w_vals = tuple(p.vals for p in mxw)
     return ShardedMaskedGramPlan(
-        coo=coo, m_t=m_t, m_w=m_w, mx_t_vals=mx_t_vals,
-        mx_w_vals=mx_w_vals, sum_mx2=sum_mx2, shape=(n, d), n_loc=n_loc,
-        nnz=int(nnz), group=group, backend='mxu')
+        coo=coo, sum_mx2=sum_mx2, shape=(n, d), n_loc=n_loc,
+        nnz=int(nnz))
 
 
 def supports_sharded_masked_gram(cfg: SweepConfig, mesh) -> bool:
@@ -306,7 +172,7 @@ def supports_sharded_masked_gram(cfg: SweepConfig, mesh) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# per-device contraction backends (local blocks)
+# per-device segment sums (local blocks)
 # ---------------------------------------------------------------------------
 
 def _seg_local(rows, cols, x, m, P_of, out_dim, width, seg_local, acc):
@@ -426,114 +292,12 @@ def _seg_gram_w_panel_local(rows, cols, x, m, T, n_loc, t0, p, acc):
     return out.T.reshape(p, k, n_loc)
 
 
-def _mxu_contract_local(segs, vals_override, F, acc, interpret, group):
-    """Sum the local chunk contraction over the per-segment plans; each
-    plan field arrives as this device's (1, ·) slice of the stacked
-    array."""
-    from rri_nmf_tpu.ops.sparse_mxu import mxu_contract
-    out = None
-    for i, p in enumerate(segs):
-        local = ContractPlan(
-            vals=(vals_override[i] if vals_override is not None
-                  else p.vals),
-            gloc=p.gloc, sloc=p.sloc,
-            ftile=p.ftile[0], otile=p.otile[0], mask=p.mask)
-        part = mxu_contract(local, F, acc_dt=acc, interpret=interpret,
-                            group=group)
-        out = part if out is None else out + part
-    return out
-
-
-def _mxu_gram_t_local(plan_segs, mx_vals, W_l, d, acc, interpret, group):
-    k = W_l.shape[1]
-    n_loc = W_l.shape[0]
-    npad = -(-n_loc // TILE) * TILE
-    Wa = W_l.astype(acc)
-    Wt = jnp.zeros((_round8(k), npad), acc).at[:k, :n_loc].set(Wa.T)
-    A = _mxu_contract_local(plan_segs, mx_vals, Wt, acc, interpret,
-                            group)[:k]
-    it, is_, _ = _sym_pairs(k)
-    kp = it.shape[0]
-    WW = Wa[:, it] * Wa[:, is_]
-    F = jnp.zeros((_round8(kp), npad), acc).at[:kp, :n_loc].set(WW.T)
-    Gp = _mxu_contract_local(plan_segs, None, F, acc, interpret,
-                             group)[:kp]
-    return jnp.concatenate([A, Gp], axis=0)[:, :d]     # (k + kp, d)
-
-
-def _mxu_gram_t_A_local(plan_segs, mx_vals, W_l, d, acc, interpret,
-                        group):
-    k = W_l.shape[1]
-    n_loc = W_l.shape[0]
-    npad = -(-n_loc // TILE) * TILE
-    Wt = jnp.zeros((_round8(k), npad), acc).at[:k, :n_loc].set(
-        W_l.astype(acc).T)
-    return _mxu_contract_local(plan_segs, mx_vals, Wt, acc, interpret,
-                               group)[:k, :d]
-
-
-def _mxu_gram_t_panel_local(plan_segs, W_l, d, t0, p, acc, interpret,
-                            group):
-    k = W_l.shape[1]
-    n_loc = W_l.shape[0]
-    npad = -(-n_loc // TILE) * TILE
-    Wa = W_l.astype(acc)
-    KR = (Wa[:, t0:t0 + p, None] * Wa[:, None, :]).reshape(n_loc, p * k)
-    F = jnp.zeros((_round8(p * k), npad), acc).at[:p * k, :n_loc].set(
-        KR.T)
-    out = _mxu_contract_local(plan_segs, None, F, acc, interpret,
-                              group)[:p * k, :d]
-    return out.reshape(p, k, d)
-
-
-def _mxu_gram_w_C_local(plan_segs, mx_vals, T, n_loc, acc, interpret,
-                        group):
-    k, d = T.shape
-    dpad = -(-d // TILE) * TILE
-    Tp = jnp.zeros((_round8(k), dpad), acc).at[:k, :d].set(T.astype(acc))
-    return _mxu_contract_local(plan_segs, mx_vals, Tp, acc, interpret,
-                               group)[:k, :n_loc]
-
-
-def _mxu_gram_w_panel_local(plan_segs, T, n_loc, t0, p, acc, interpret,
-                            group):
-    k, d = T.shape
-    dpad = -(-d // TILE) * TILE
-    Ta = T.astype(acc)
-    KR = (Ta[t0:t0 + p, None, :] * Ta[None, :, :]).reshape(p * k, d)
-    F = jnp.zeros((_round8(p * k), dpad), acc).at[:p * k, :d].set(KR)
-    out = _mxu_contract_local(plan_segs, None, F, acc, interpret,
-                              group)[:p * k, :n_loc]
-    return out.reshape(p, k, n_loc)
-
-
-def _mxu_gram_w_local(plan_segs, mx_vals, T, n_loc, acc, interpret,
-                      group):
-    k = T.shape[0]
-    d = T.shape[1]
-    dpad = -(-d // TILE) * TILE
-    Ta = T.astype(acc)
-    Tp = jnp.zeros((_round8(k), dpad), acc).at[:k, :d].set(Ta)
-    C = _mxu_contract_local(plan_segs, mx_vals, Tp, acc, interpret,
-                            group)[:k]
-    it, is_, _ = _sym_pairs(k)
-    kp = it.shape[0]
-    TT = Ta[it] * Ta[is_]
-    F = jnp.zeros((_round8(kp), dpad), acc).at[:kp, :d].set(TT)
-    Hp = _mxu_contract_local(plan_segs, None, F, acc, interpret,
-                             group)[:kp]
-    return jnp.concatenate([C, Hp], axis=0)[:, :n_loc]  # (k + kp, n_loc)
-
-
 # ---------------------------------------------------------------------------
 # the sweep
 # ---------------------------------------------------------------------------
 
 @lru_cache(maxsize=16)
 def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
-                                   backend: str = 'segsum',
-                                   group: int = 8,
-                                   interpret: Optional[bool] = None,
                                    panel: Optional[int] = None):
     """shard_map'd Gram-phase masked sweep. Driver call signature::
 
@@ -552,8 +316,6 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
     assert supports_sharded_masked_gram(cfg, mesh), \
         'config not supported by the masked Gram mesh sweep'
     k = cfg.k
-    if interpret is None:
-        interpret = _interpret_default()
     if panel is not None and not (1 <= panel < k):
         raise ValueError('panel must satisfy 1 <= panel < k')
     dp_ax, _tp = mesh.axis_names
@@ -561,8 +323,7 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
     _, _, unpack = _sym_pairs(k)
     unpack_mat = unpack.reshape(k, k)                  # host np, static
 
-    def _local_panel(rows, cols, x, m, W_l, T, key, m_t, m_w, mx_t,
-                     mx_w):
+    def _local_panel(rows, cols, x, m, W_l, T, key):
         rows = rows[0]
         cols = cols[0]
         x = x[0]
@@ -573,11 +334,7 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
         d = T.shape[1]
 
         if not cfg.fix_T:
-            if backend == 'mxu':
-                A = _mxu_gram_t_A_local(m_t, mx_t, W_l, d, acc,
-                                        interpret, group)
-            else:
-                A = _seg_gram_t_A_local(rows, cols, x, m, W_l, d, acc)
+            A = _seg_gram_t_A_local(rows, cols, x, m, W_l, d, acc)
             A = lax.psum(A, dp_ax)
             for _rep in range(cfg.inner_reps):
                 for t0 in range(0, k, panel):
@@ -588,12 +345,8 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
                     # the scheduler hoists every Γ panel live at once
                     (T, key), W_seq = lax.optimization_barrier(
                         ((T, key), W_l))
-                    if backend == 'mxu':
-                        Gpan = _mxu_gram_t_panel_local(
-                            m_t, W_seq, d, t0, p, acc, interpret, group)
-                    else:
-                        Gpan = _seg_gram_t_panel_local(
-                            rows, cols, x, m, W_seq, d, t0, p, acc)
+                    Gpan = _seg_gram_t_panel_local(
+                        rows, cols, x, m, W_seq, d, t0, p, acc)
                     Gpan = lax.psum(Gpan, dp_ax)
 
                     def t_topic(j, carry, t0=t0, Gpan=Gpan):
@@ -626,11 +379,7 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
                     T, key = lax.fori_loop(0, p, t_topic, (T, key))
 
         if not cfg.fix_W:
-            if backend == 'mxu':
-                C = _mxu_gram_w_C_local(m_w, mx_w, T, n_loc, acc,
-                                        interpret, group)
-            else:
-                C = _seg_gram_w_C_local(rows, cols, x, m, T, n_loc, acc)
+            C = _seg_gram_w_C_local(rows, cols, x, m, T, n_loc, acc)
             for _rep in range(cfg.inner_reps):
                 for t0 in range(0, k, panel):
                     p = min(panel, k - t0)
@@ -638,13 +387,8 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
                     # frozen T)
                     (W_l, key), T_seq = lax.optimization_barrier(
                         ((W_l, key), T))
-                    if backend == 'mxu':
-                        Hpan = _mxu_gram_w_panel_local(
-                            m_w, T_seq, n_loc, t0, p, acc, interpret,
-                            group)
-                    else:
-                        Hpan = _seg_gram_w_panel_local(
-                            rows, cols, x, m, T_seq, n_loc, t0, p, acc)
+                    Hpan = _seg_gram_w_panel_local(
+                        rows, cols, x, m, T_seq, n_loc, t0, p, acc)
 
                     def w_topic(j, carry, t0=t0, Hpan=Hpan):
                         W_l, key = carry
@@ -670,7 +414,7 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
 
         return W_l, T, key
 
-    def _local(rows, cols, x, m, W_l, T, key, m_t, m_w, mx_t, mx_w):
+    def _local(rows, cols, x, m, W_l, T, key):
         rows = rows[0]
         cols = cols[0]
         x = x[0]
@@ -683,11 +427,7 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
 
         # ---- T-phase: W frozen → local (A, Γ) partials, ONE psum ------
         if not cfg.fix_T:
-            if backend == 'mxu':
-                part = _mxu_gram_t_local(m_t, mx_t, W_l, d, acc,
-                                         interpret, group)
-            else:
-                part = _seg_gram_t_local(rows, cols, x, m, W_l, d, acc)
+            part = _seg_gram_t_local(rows, cols, x, m, W_l, d, acc)
             AG = lax.psum(part, dp_ax)
             A = AG[:k]
             Gp = AG[k:]                                # (kp, d)
@@ -726,11 +466,7 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
 
         # ---- W-phase: T frozen → (C, Θ) row-keyed, fully local --------
         if not cfg.fix_W:
-            if backend == 'mxu':
-                CH = _mxu_gram_w_local(m_w, mx_w, T, n_loc, acc,
-                                       interpret, group)
-            else:
-                CH = _seg_gram_w_local(rows, cols, x, m, T, n_loc, acc)
+            CH = _seg_gram_w_local(rows, cols, x, m, T, n_loc, acc)
             C = CH[:k]
             Hp = CH[k:]                                # (kp, n_loc)
 
@@ -761,32 +497,20 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
 
         return W_l, T, key
 
-    # mxu plan segments ride through shard_map as stacked (dp, ·) arrays
-    def _plan_specs(plan):
-        sharded = P(dp_ax, None)
-        return (jax.tree_util.tree_map(lambda _: sharded, plan.m_t),
-                jax.tree_util.tree_map(lambda _: sharded, plan.m_w),
-                jax.tree_util.tree_map(lambda _: sharded,
-                                       plan.mx_t_vals),
-                jax.tree_util.tree_map(lambda _: sharded,
-                                       plan.mx_w_vals))
-
     def sweep(plan, W, T, key, resets_left, reset_key, *extras):
         n, d = plan.shape
         n_pad = plan.n_loc * dp_size
         if n_pad != n:
             W = jnp.zeros((n_pad, W.shape[1]), W.dtype).at[:n].set(W)
         coo = plan.coo
-        mt_spec, mw_spec, mxt_spec, mxw_spec = _plan_specs(plan)
         W_out, T_out, key = shard_map(
             _local if panel is None else _local_panel, mesh=mesh,
             in_specs=(P(dp_ax, None), P(dp_ax, None), P(dp_ax, None),
                       P(dp_ax, None), P(dp_ax, None), P(None, None),
-                      P(), mt_spec, mw_spec, mxt_spec, mxw_spec),
+                      P()),
             out_specs=(P(dp_ax, None), P(None, None), P()),
             check_vma=False)(
-            coo.rows, coo.cols, coo.x_vals, coo.m_vals, W, T, key,
-            plan.m_t, plan.m_w, plan.mx_t_vals, plan.mx_w_vals)
+            coo.rows, coo.cols, coo.x_vals, coo.m_vals, W, T, key)
         if n_pad != n:
             W_out = W_out[:n]
         return W_out, T_out, key, resets_left
@@ -801,9 +525,7 @@ def make_sharded_masked_gram_sweep(cfg: SweepConfig, mesh,
     return jax.jit(sweep)
 
 
-def make_sharded_masked_gram_objective(mesh, backend='segsum', group=8,
-                                       interpret=None,
-                                       reg_w_l2=0.0, reg_t_l2=0.0,
+def make_sharded_masked_gram_objective(mesh, reg_w_l2=0.0, reg_t_l2=0.0,
                                        reg_w_l1=0.0, reg_t_l1=0.0,
                                        panel=None):
     """Masked objective over a :class:`ShardedMaskedGramPlan` through the
@@ -815,46 +537,31 @@ def make_sharded_masked_gram_objective(mesh, backend='segsum', group=8,
     ``panel``: accumulate the quadratic form in (panel, k, n_loc) Θ
     tiles (the mesh analog of the single-device panel objective).
     """
-    if interpret is None:
-        interpret = _interpret_default()
     dp_ax, _tp = mesh.axis_names
     dp_size = mesh.devices.shape[0]
 
-    def _local(rows, cols, x, m, W_l, T, m_w, mx_w):
+    def _local(rows, cols, x, m, W_l, T):
         _, acc, _ = resolve_mixed_dtypes(W_l.dtype, W_l.dtype)
         k = T.shape[0]
         n_loc = W_l.shape[0]
         Wa = W_l.astype(acc)
         if panel is not None:
-            if backend == 'mxu':
-                C = _mxu_gram_w_C_local(m_w, mx_w, T, n_loc, acc,
-                                        interpret, group)
-            else:
-                C = _seg_gram_w_C_local(rows[0], cols[0], x[0], m[0],
-                                        T, n_loc, acc)
+            C = _seg_gram_w_C_local(rows[0], cols[0], x[0], m[0],
+                                    T, n_loc, acc)
             cross = jnp.sum(C * Wa.T)
             quad = jnp.zeros((), acc)
             for t0 in range(0, k, panel):
                 p = min(panel, k - t0)
                 # sequencing barrier (see the single-device objective)
                 quad, T_seq = lax.optimization_barrier((quad, T))
-                if backend == 'mxu':
-                    Hpan = _mxu_gram_w_panel_local(
-                        m_w, T_seq, n_loc, t0, p, acc, interpret,
-                        group)
-                else:
-                    Hpan = _seg_gram_w_panel_local(
-                        rows[0], cols[0], x[0], m[0], T_seq, n_loc,
-                        t0, p, acc)
+                Hpan = _seg_gram_w_panel_local(
+                    rows[0], cols[0], x[0], m[0], T_seq, n_loc, t0, p,
+                    acc)
                 quad = quad + jnp.einsum(
                     'tsi,it,is->', Hpan, Wa[:, t0:t0 + p], Wa)
         else:
-            if backend == 'mxu':
-                CH = _mxu_gram_w_local(m_w, mx_w, T, n_loc, acc,
-                                       interpret, group)
-            else:
-                CH = _seg_gram_w_local(rows[0], cols[0], x[0], m[0], T,
-                                       n_loc, acc)
+            CH = _seg_gram_w_local(rows[0], cols[0], x[0], m[0], T,
+                                   n_loc, acc)
             C = CH[:k]
             Hp = CH[k:]
             it, is_, _ = _sym_pairs(k)
@@ -876,18 +583,14 @@ def make_sharded_masked_gram_objective(mesh, backend='segsum', group=8,
         if n_pad != n:
             W = jnp.zeros((n_pad, W.shape[1]), W.dtype).at[:n].set(W)
         sharded = P(dp_ax, None)
-        mw_spec = jax.tree_util.tree_map(lambda _: sharded, plan.m_w)
-        mxw_spec = jax.tree_util.tree_map(lambda _: sharded,
-                                          plan.mx_w_vals)
         coo = plan.coo
         part = shard_map(
             _local, mesh=mesh,
             in_specs=(sharded, sharded, sharded, sharded, sharded,
-                      P(None, None), mw_spec, mxw_spec),
+                      P(None, None)),
             out_specs=P(None),
             check_vma=False)(
-            coo.rows, coo.cols, coo.x_vals, coo.m_vals, W, T,
-            plan.m_w, plan.mx_w_vals)[0]
+            coo.rows, coo.cols, coo.x_vals, coo.m_vals, W, T)[0]
         _, acc, _ = resolve_mixed_dtypes(W.dtype, W.dtype)
         Ta = T.astype(acc)
         return (0.5 * plan.sum_mx2 + part

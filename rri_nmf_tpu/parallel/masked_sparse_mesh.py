@@ -10,7 +10,7 @@ be ``(n_devices, 1)``: every T-phase quantity is a d-vector).
 
 Communication per topic is exactly one ``psum`` of a ``(2, d)`` stack —
 the column-keyed segment sums ``(w²)ᵀM`` and ``wᵀ(M⊙R)`` — so a sweep
-moves O(k·d) over ICI, independent of nnz. Everything else is local:
+moves O(k·d) between devices, independent of nnz. Everything else is local:
 the W-phase quantities are row-keyed (device-local under row
 partitioning), the residual carry lives with its observations, and the
 T-row update is computed replicated from the psum'd numerators (identical

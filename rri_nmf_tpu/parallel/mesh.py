@@ -3,7 +3,7 @@
 The reference has **no** distributed runtime at all (SURVEY.md §2.2: no
 MPI/NCCL/sockets; only vestigial hooks at reference ``nmf.py:233-235`` and
 ``nmf.py:653-660`` noting what a distributed NMF *would* send). This module
-is the TPU-native scale path specified by the north star:
+is the multi-device scale path specified by the north star:
 
 - ``X`` is sharded over a 2-D mesh ``('dp', 'tp')`` — rows over ``dp``
   (documents; the large axis for topic modeling) and columns over ``tp``
@@ -12,7 +12,7 @@ is the TPU-native scale path specified by the north star:
 - ``T`` (k×d) shards its columns over ``tp`` and replicates over ``dp``.
 
 With those layouts every per-topic contraction in the sweep reduces over
-exactly one mesh axis and GSPMD auto-inserts the collective over ICI:
+exactly one mesh axis and GSPMD auto-inserts the collective:
 
 - ``W^T X``   (the T-phase GEMM)  → ``psum`` over ``dp``;
 - ``X @ T[t]`` (the W-phase GEMV) → ``psum`` over ``tp``;
@@ -44,9 +44,12 @@ def make_mesh(n_devices=None, mesh_shape=None, axis_names=('dp', 'tp'),
 
     ``mesh_shape`` defaults to (n_devices, 1) — pure row sharding — unless
     n_devices is divisible by 2, in which case (n_devices//2, 2) exercises
-    both axes. Pass an explicit ``mesh_shape`` for production layouts (the
-    ``dp`` axis should map to the longer ICI dimension since the T-phase
-    GEMM psum rides it).
+    both axes. Pass an explicit ``mesh_shape`` for production layouts. The
+    mesh follows the algorithm, not the wiring: NVLink joins every GPU of
+    a host to every other at the same rate, so rows over ``dp`` — a
+    ``(n_devices, 1)`` mesh — is the layout for large-n problems (its only
+    per-phase traffic is the (k, d) T-phase numerator psum and two k×k
+    Grams).
     """
     if devices is None:
         devices = jax.devices()
@@ -113,9 +116,8 @@ def make_sharded_training_step(cfg: SweepConfig, mesh: Mesh,
     sweep = make_sweep(cfg)
     # mesh-blockwise residual objective (ops/accel.py): shard_map'd
     # local row blocks + psum, so per-device temps stay at block size —
-    # the one-piece GSPMD residual costs an X-sized f32 temp per device
-    # (24.2 GiB/device measured at the 1M×100k k=1024 pod shape,
-    # results_round4_pod_scale_compile.json); falls back to one-piece
+    # the one-piece GSPMD residual costs an X-sized f32 temp per device;
+    # falls back to one-piece
     # automatically when the global shape does not tile the mesh
     from rri_nmf_tpu.ops.accel import make_residual_obj
     obj_fn = make_residual_obj(cfg, distributed=True)

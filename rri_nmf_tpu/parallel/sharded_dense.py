@@ -1,37 +1,35 @@
-"""Multi-chip dense phase sweep: per-device GS Pallas kernels + ICI psum.
+"""Multi-device dense phase sweep: per-device Gauss-Seidel loops + psum.
 
-Carries the single-chip hybrid dense sweep (:mod:`rri_nmf_tpu.ops
-.dense_pallas`: XLA GEMMs for the X contractions + fused Gauss-Seidel
-Pallas kernels for the topic loops) to a ``(dp, tp)`` mesh with
-``shard_map``. Communication per sweep is four psums of SMALL operands —
-nothing proportional to X moves:
+Carries the single-device dense phase sweep (:mod:`rri_nmf_tpu.ops
+.dense_phase`: XLA GEMMs for the X contractions + the Gauss-Seidel topic
+loop, Triton kernel or XLA) to a ``(dp, tp)`` mesh with ``shard_map``.
+Communication per sweep is four psums of SMALL operands — nothing
+proportional to X moves:
 
 - T-phase: ``G = WᵀW`` (k×k, psum over ``dp``) and the numerator panel
   ``WᵀX`` (k × d/tp local columns, partial over ``dp`` rows → psum over
   ``dp``). T columns are independent within the phase, so each device's
-  GS kernel on its local ``(k, d_loc)`` T tile IS the global Gauss-Seidel
-  update restricted to its columns — bitwise the same subproblems.
-  The TM preset's per-topic simplex projection breaks that column
-  independence (one threshold per whole row): for those configs the
-  numerator + factor panels are all_gathered over ``tp`` (raising the
+  topic loop on its local ``(k, d_loc)`` T tile IS the global
+  Gauss-Seidel update restricted to its columns — bitwise the same
+  subproblems. The TM preset's per-topic simplex projection breaks that
+  column independence (one threshold per whole row): for those configs
+  the numerator + factor panels are all_gathered over ``tp`` (raising the
   T-phase wire term from ``k·d/tp`` to ``2·k·d`` per device) and the
-  exact whole-panel projected kernel
-  (:func:`rri_nmf_tpu.ops.dense_pallas._make_tm_proj_kernel`) runs
-  replicated per tp rank; each device keeps its local columns.
+  projected XLA loop runs replicated per tp rank on whole rows; each
+  device keeps its local columns.
 - W-phase: ``G₂ = TTᵀ`` (k×k, psum over ``tp``) and ``T X_locᵀ``
   (k × n/dp, psum over ``tp``); W rows are independent, same argument.
 
 Per-device wire traffic per sweep: ``k·d/tp + k·n/dp + 2k²`` floats —
 the same collective pattern as the sharded sparse path
-(:mod:`rri_nmf_tpu.parallel.sparse_mesh`), here feeding the VMEM-resident
-GS kernels instead of the XLA Gram-blocked loop. The reference has no
+(:mod:`rri_nmf_tpu.parallel.sparse_mesh`). The reference has no
 distributed runtime at all (SURVEY.md §2.2; vestigial hooks at reference
 ``nmf.py:233-235,653-660``).
 
 Layouts (matching :mod:`rri_nmf_tpu.parallel.mesh`):
 ``X: P(dp, tp)``; ``W: P(dp, None)``; ``T: P(None, tp)``. Global shapes
-are zero-padded to ``(BN·|dp|, BD·|tp|)`` multiples once per sweep;
-padded rows/columns are sliced away on return.
+are zero-padded to ``(dp, tp)`` multiples once per sweep; padded
+rows/columns are sliced away on return.
 """
 
 from functools import lru_cache
@@ -47,60 +45,37 @@ except ImportError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map
 
 from rri_nmf_tpu.matrixops import _proj_simplex_core
-from rri_nmf_tpu.ops.sweep_xla import resolve_mixed_dtypes
-from rri_nmf_tpu.ops.dense_pallas import (
-    BD, BN, _gs_call, _pick_block, _round_up, _tm_proj_active,
-    _tm_proj_call, supports_dense_pallas, tm_proj_fits)
+from rri_nmf_tpu.ops.dense_phase import (_projected_t, gs_panel,
+                                         gs_topics_blocked, phase_bounds,
+                                         supports_dense_phase)
+from rri_nmf_tpu.ops.sweep_xla import _gram_block_size, resolve_mixed_dtypes
 
 
-def supports_sharded_dense(cfg, d=None, narrow=False) -> bool:
-    """Config coverage: the single-chip dense GS kernels' restrictions
-    (phase order, unmasked, no resets/stores/DP). The TM preset's
-    per-topic T simplex projection IS covered (whole-row projected
-    kernel on tp-gathered panels) when the caller supplies ``d`` and the
-    full ``(k, d)`` panel fits the VMEM budget — budgeted at the
-    GATHERED width ``round_up(d, BD·tp)``, which can far exceed the
-    single-chip padding (the panel is replicated per tp rank). Shape-
-    blind callers get the conservative answer."""
-    from rri_nmf_tpu.ops.dense_pallas import (_round_up, _supports_base,
-                                              _tm_proj_active, gs_fits,
-                                              tm_proj_fits)
-    if not _supports_base(cfg) or not gs_fits(cfg.k, narrow):
-        return False
-    if _tm_proj_active(cfg):
-        if d is None:
-            return False
-        tp_size = (cfg.mesh.devices.shape[1]
-                   if cfg.mesh is not None else 1)
-        dpad = _round_up(int(d), BD * tp_size)
-        return tm_proj_fits(cfg.k, int(d), narrow, dpad=dpad)
-    return True
+def _round_up(x, m):
+    return (x + m - 1) // m * m
 
 
 @lru_cache(maxsize=16)
-def make_sharded_dense_sweep_pallas(cfg, mesh, interpret=False):
-    """Build the mesh-sharded dense phase sweep.
+def make_sharded_dense_sweep(cfg, mesh, gs='xla'):
+    """Build the mesh-sharded dense phase sweep; ``gs`` as in
+    :func:`rri_nmf_tpu.ops.dense_phase.make_dense_phase_sweep`.
 
     Same call signature as the single-device sweeps::
 
         sweep(X, W, T, key, resets_left, reset_key[, w_row_sum_vec])
             -> (W, T, key, resets_left)
     """
-    from rri_nmf_tpu.ops.dense_pallas import _supports_base
-    assert _supports_base(cfg), \
-        'config not supported by the sharded dense GS kernels'
+    assert supports_dense_phase(cfg), \
+        'config not supported by the sharded dense phase sweep'
     k = cfg.k
     dp, tp = mesh.axis_names
     dp_size, tp_size = mesh.devices.shape
-
-    t_bound = float(cfg.t_row_sum) if cfg.t_row_sum else float('inf')
-    w_bound = (float(cfg.w_row_sum)
-               if (cfg.w_row_sum is not None
-                   and not cfg.w_row_sum_is_vector) else float('inf'))
+    t_bound, w_bound = phase_bounds(cfg)
+    proj_t = _projected_t(cfg)
 
     def make_local_sweep(d_glob):
         # ``d_glob`` is the TRUE (unpadded) global column count — the
-        # projected T-phase kernel must mask the global padding out of its
+        # projected T-phase must mask the global padding out of its
         # simplex thresholds, so the shard_map body is built per shape.
         def local_sweep(X, W, T, ub_vec):
             # per-device code on local tiles: X (n_loc, d_loc), W
@@ -114,13 +89,11 @@ def make_sharded_dense_sweep_pallas(cfg, mesh, interpret=False):
             # sweep_xla.resolve_mixed_dtypes for the x_narrow rules)
             dtype, acc_dt, x_narrow = resolve_mixed_dtypes(
                 X.dtype, W.dtype, cfg.matmul_precision)
-            narrow = jnp.dtype(dtype) != jnp.dtype(acc_dt)
 
             # ---------------- T-phase ----------------------------------
             if not cfg.fix_T:
                 G = lax.psum(
                     jnp.dot(W.T, W, preferred_element_type=acc_dt), dp)
-                diag = jnp.diagonal(G).reshape(k, 1)
                 if qx is not None:
                     # scale folding commutes with the dp psum (the
                     # column scale is dp-invariant)
@@ -130,38 +103,36 @@ def make_sharded_dense_sweep_pallas(cfg, mesh, interpret=False):
                     WX = lax.psum(
                         lax.dot_general(Wx, X, (((0,), (0,)), ((), ())),
                                         preferred_element_type=acc_dt), dp)
-                if _tm_proj_active(cfg):
+                if proj_t:
                     # the per-topic simplex threshold couples ALL d
-                    # columns of a row, so the projected kernel needs
-                    # whole rows: gather the numerator + factor panels
-                    # over ``tp`` (2·k·d floats of ICI per device per
-                    # sweep, vs k·d/tp unprojected), run the exact
-                    # whole-panel projected kernel replicated per tp
-                    # rank, keep the local columns. Redundant compute,
-                    # zero extra wall-clock vs compute-then-broadcast.
+                    # columns, so the projected loop needs whole rows:
+                    # gather the numerator + factor panels over ``tp``
+                    # (2·k·d floats per device per sweep, vs k·d/tp
+                    # unprojected), run the loop replicated per tp rank
+                    # with the global padding masked out, keep the local
+                    # columns
                     WXg = lax.all_gather(WX, tp, axis=1, tiled=True)
                     Tg = lax.all_gather(T, tp, axis=1, tiled=True)
-                    Tg = _tm_proj_call(
-                        k, d_glob, d_loc * tp_size, cfg.reg_t_l1,
-                        cfg.reg_t_l2, float(cfg.t_row_sum), acc_dt,
-                        dtype, G, diag, WXg, Tg, interpret=interpret,
-                        reps=cfg.inner_reps)
+                    Tg = gs_topics_blocked(
+                        WXg, Tg, G, k=k, B=_gram_block_size(k),
+                        reg_l1=cfg.reg_t_l1, reg_l2=cfg.reg_t_l2,
+                        qf_s=cfg.t_row_sum, qf_ub=t_bound,
+                        reproject_sum=cfg.t_row_sum, acc=acc_dt,
+                        dtype=dtype, reps=cfg.inner_reps,
+                        valid_cols=(d_glob if d_glob < Tg.shape[1]
+                                    else None))
                     T = lax.dynamic_slice_in_dim(
                         Tg, lax.axis_index(tp) * d_loc, d_loc, axis=1)
                 else:
-                    _, bd = _pick_block(d_loc, BD, k=k, narrow=narrow)
-                    T = _gs_call(k, bd, d_loc // bd, cfg.reg_t_l1,
-                                 cfg.reg_t_l2, t_bound, acc_dt, dtype,
-                                 G, diag, WX, T, interpret=interpret,
+                    T = gs_panel(WX, T, G, impl=gs, k=k,
+                                 reg_l1=cfg.reg_t_l1, reg_l2=cfg.reg_t_l2,
+                                 ub=t_bound, acc=acc_dt, dtype=dtype,
                                  reps=cfg.inner_reps)
                     if d_glob < d_loc * tp_size:
                         # zero the global zero-padding's ghost columns
                         # before the W-phase Gram: a negative reg_t_l1
                         # grows them (numer = -reg_l1 > 0 on pads) and
-                        # they would flow into psum(T @ T.T) — the
-                        # single-chip sweep slices T[:, :d] here
-                        # (dense_pallas) and the projected branch masks
-                        # in-kernel
+                        # they would flow into psum(T @ T.T)
                         col_ok = (lax.axis_index(tp) * d_loc
                                   + jnp.arange(d_loc)) < d_glob
                         T = jnp.where(col_ok[None, :], T, 0)
@@ -170,7 +141,6 @@ def make_sharded_dense_sweep_pallas(cfg, mesh, interpret=False):
             if not cfg.fix_W:
                 G2 = lax.psum(
                     jnp.dot(T, T.T, preferred_element_type=acc_dt), tp)
-                diag2 = jnp.diagonal(G2).reshape(k, 1)
                 if qx is not None:
                     XTt = lax.psum(qx_w_numerator(T, qx, acc_dt), tp)
                 else:
@@ -178,15 +148,11 @@ def make_sharded_dense_sweep_pallas(cfg, mesh, interpret=False):
                     XTt = lax.psum(
                         lax.dot_general(Tx, X, (((1,), (1,)), ((), ())),
                                         preferred_element_type=acc_dt), tp)
-                ub = None
-                if cfg.w_row_sum_is_vector:
-                    ub = ub_vec.astype(acc_dt).reshape(1, n_loc)
-                _, bn = _pick_block(n_loc, BN, k=k, narrow=narrow)
-                Wt = _gs_call(k, bn, n_loc // bn, cfg.reg_w_l1,
-                              cfg.reg_w_l2, w_bound, acc_dt, dtype, G2,
-                              diag2, XTt, W.T, ub=ub, interpret=interpret,
-                              reps=cfg.inner_reps)
-                W = Wt.T
+                ub = ub_vec if cfg.w_row_sum_is_vector else w_bound
+                W = gs_panel(XTt, W.T, G2, impl=gs, k=k,
+                             reg_l1=cfg.reg_w_l1, reg_l2=cfg.reg_w_l2,
+                             ub=ub, acc=acc_dt, dtype=dtype,
+                             reps=cfg.inner_reps).T
 
             # per-iteration W row projection: rows are dp-local, no
             # communication. Padded rows project to garbage but are
@@ -209,12 +175,12 @@ def make_sharded_dense_sweep_pallas(cfg, mesh, interpret=False):
         qx = X if isinstance(X, QuantizedX) else None
         n, d = X.shape
         dtype = W.dtype   # factor dtype (mixed storage: X may be narrower)
-        npad = _round_up(n, BN * dp_size)
-        dpad = _round_up(d, BD * tp_size)
+        npad = _round_up(n, dp_size)
+        dpad = _round_up(d, tp_size)
         x_spec = QuantizedX(P(dp, tp), P(tp)) if qx is not None \
             else P(dp, tp)
         # shapes are static under jit: the shard_map body is rebuilt per
-        # (n, d) trace, carrying the true d into the projected kernel
+        # (n, d) trace, carrying the true d into the projected loop
         sharded = shard_map(
             make_local_sweep(d), mesh=mesh,
             in_specs=(x_spec, P(dp, None), P(None, tp), ub_spec),
@@ -222,11 +188,9 @@ def make_sharded_dense_sweep_pallas(cfg, mesh, interpret=False):
             check_vma=False)  # pallas outputs carry no varying-axis info
 
         # skip the O(nd) repad when the shapes already sit on the mesh
-        # block quanta (matching make_sharded_sparse_sweep). Shapes OFF
-        # the quanta pay this X-sized pad on EVERY sweep (the jitted
-        # sweep is pure; X cannot be cached across calls) — roughly one
-        # extra X read+write, comparable to a GEMM pass of HBM traffic.
-        # Pre-pad the input to (BN·dp, BD·tp) multiples to avoid it.
+        # (matching make_sharded_sparse_sweep). Shapes off the mesh pay
+        # this X-sized pad on EVERY sweep (the jitted sweep is pure; X
+        # cannot be cached across calls) — pre-pad the input to avoid it.
         if qx is not None:
             # pad the code with zeros and the scale with ones (pad
             # columns dequantize to exact zeros either way)

@@ -1,8 +1,8 @@
-"""Mesh-sharded sparse-X RRI sweep: per-device COO blocks + ICI psum.
+"""Mesh-sharded sparse-X RRI sweep: per-device COO blocks + psum.
 
 This is the BASELINE.md #5 path (row-sharded 1M×100k, k=1024): corpora
-whose *sparse* form fits the pod but whose dense form exceeds every chip's
-HBM. The reference has no answer at this scale — its RS estimator
+whose *sparse* form fits the mesh but whose dense form exceeds every
+device's memory. The reference has no answer at this scale — its RS estimator
 densifies COO input (reference ``sklearn_interface.py:78-83``) and it has
 no distributed runtime at all (SURVEY.md §2.2).
 
@@ -24,7 +24,7 @@ sparse contractions per sweep, each reducing over exactly one mesh axis:
 - Gram matrices ``WᵀW`` / ``TTᵀ`` → one (k, k) psum per phase.
 
 Everything else — the Gram-blocked Gauss-Seidel topic loops
-(:func:`rri_nmf_tpu.ops.sweep_sparse.gs_topics_blocked`), qf_min, row
+(:func:`rri_nmf_tpu.ops.dense_phase.gs_topics_blocked`), qf_min, row
 projections — is local to a device (T updates replicate over ``dp``; W
 updates are row-local on ``dp``). Per sweep the wire carries
 O(kd/tp + kn/dp + k²) per device, independent of nnz.
@@ -51,8 +51,9 @@ except ImportError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map
 
 from rri_nmf_tpu.matrixops import _proj_simplex_core
+from rri_nmf_tpu.ops.dense_phase import gs_topics_blocked
+from rri_nmf_tpu.ops.sweep_sparse import supports_sparse
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig, _gram_block_size
-from rri_nmf_tpu.ops.sweep_sparse import gs_topics_blocked, supports_sparse
 
 
 @register_pytree_node_class
@@ -92,8 +93,9 @@ class ShardedCOO:
 
 
 def _block_runs(X, mesh, n_loc, d_loc):
-    """Host-side partition core shared by :func:`partition_coo` and
-    :func:`partition_mxu`: canonicalize X (CSR — duplicates summed,
+    """Host-side partition core of :func:`partition_coo` and
+    :func:`~rri_nmf_tpu.parallel.multihost.distribute_sparse_coo`:
+    canonicalize X (CSR — duplicates summed,
     sorted), sort the nonzeros ONCE by (dp, tp) device block, and return
     the contiguous per-block runs.
 
@@ -309,6 +311,13 @@ def make_sharded_sparse_sweep(cfg: SweepConfig, mesh):
         Wp, Tp = sharded(Xs.data, Xs.rows, Xs.cols, Wp, Tp, *ex)
         return Wp[:n], Tp[:, :d], key, resets_left
 
+    if cfg.matmul_precision is not None:
+        _sweep_body = sweep
+
+        def sweep(*args):
+            with jax.default_matmul_precision(cfg.matmul_precision):
+                return _sweep_body(*args)
+
     return jax.jit(sweep)
 
 
@@ -371,290 +380,3 @@ def make_sharded_sparse_objective(mesh, reg_w_l2=0.0, reg_t_l2=0.0,
 
     return jax.jit(objective)
 
-
-# ---------------------------------------------------------------------------
-# mesh-sharded one-hot MXU contractions (ops/sparse_mxu.py under shard_map)
-# ---------------------------------------------------------------------------
-
-@register_pytree_node_class
-class ShardedMXUPlan:
-    """A (dp, tp) grid of per-device :class:`~rri_nmf_tpu.ops.sparse_mxu`
-    chunk plans, padded to uniform chunk counts so every device runs the
-    same kernel shape (dummy groups carry v = 0 and an otile equal to the
-    device's last real otile, so they accumulate exact zeros).
-
-    Leading (dp, tp) axes are sharded ``P(dp, tp, ...)``; each device's
-    local slice reconstitutes one direction's ContractPlan. ``n_loc`` and
-    ``d_loc`` are 128-multiples (the MXU tile grid)."""
-
-    _fields = ('t_vals', 't_gloc', 't_sloc', 't_ftile', 't_otile',
-               't_mask', 'w_vals', 'w_gloc', 'w_sloc', 'w_ftile',
-               'w_otile', 'w_mask')
-
-    # optional companion COO blocks for the true objective
-    # (distribute_sparse_coo(with_obj_coo=True) attaches them to the
-    # driver-held handle; NOT a pytree child — does not survive
-    # flatten/unflatten, which the sweeps never need)
-    obj_coo = None
-
-    def __init__(self, t_vals, t_gloc, t_sloc, t_ftile, t_otile, t_mask,
-                 w_vals, w_gloc, w_sloc, w_ftile, w_otile, w_mask,
-                 shape, n_loc, d_loc, group):
-        self.t_vals, self.t_gloc, self.t_sloc = t_vals, t_gloc, t_sloc
-        self.t_ftile, self.t_otile, self.t_mask = t_ftile, t_otile, t_mask
-        self.w_vals, self.w_gloc, self.w_sloc = w_vals, w_gloc, w_sloc
-        self.w_ftile, self.w_otile, self.w_mask = w_ftile, w_otile, w_mask
-        self.shape = tuple(shape)
-        self.n_loc = int(n_loc)
-        self.d_loc = int(d_loc)
-        self.group = int(group)
-
-    @property
-    def dtype(self):
-        return self.t_vals.dtype
-
-    def tree_flatten(self):
-        return (tuple(getattr(self, f) for f in self._fields),
-                (self.shape, self.n_loc, self.d_loc, self.group))
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        shape, n_loc, d_loc, group = aux
-        return cls(*children, shape=shape, n_loc=n_loc, d_loc=d_loc,
-                   group=group)
-
-
-def partition_mxu(X, mesh, dtype=None, C=128, group=8):
-    """Host-side: scipy sparse → :class:`ShardedMXUPlan` on ``mesh``.
-    Each device's (n_loc, d_loc) block gets both direction plans from
-    :func:`rri_nmf_tpu.ops.sparse_mxu._plan_direction_np`; all devices
-    are padded to the max group count per direction."""
-    from rri_nmf_tpu.ops.sparse_mxu import TILE, _plan_direction_np
-
-    n, d = X.shape
-    dp_size, tp_size = mesh.devices.shape
-    n_loc = -(-(-(-n // dp_size)) // TILE) * TILE
-    d_loc = -(-(-(-d // tp_size)) // TILE) * TILE
-    # one O(nnz log nnz) sort by device block, then slice contiguous runs
-    # (vs a boolean mask per device: O(n_devices * nnz) host work) —
-    # shared with partition_coo via _block_runs
-    (n, d), starts, r_s, c_s, v_s = _block_runs(X, mesh, n_loc, d_loc)
-    if dtype is None:
-        dtype = v_s.dtype
-    dtype = np.dtype(dtype)
-    n_gt, n_ct = n_loc // TILE, d_loc // TILE
-    plans_t, plans_w = [], []
-    for b in range(dp_size * tp_size):
-        lo, hi = starts[b], starts[b + 1]
-        r = (r_s[lo:hi] % n_loc).astype(np.int64)
-        c = (c_s[lo:hi] % d_loc).astype(np.int64)
-        v = v_s[lo:hi].astype(dtype)
-        plans_t.append(_plan_direction_np(r, c, v, n_gt, n_ct, C,
-                                          group, dtype))
-        plans_w.append(_plan_direction_np(c, r, v, n_ct, n_gt, C,
-                                          group, dtype))
-
-    st = _pad_stack_mxu(plans_t, group, C, (dp_size, tp_size))
-    sw = _pad_stack_mxu(plans_w, group, C, (dp_size, tp_size))
-
-    return ShardedMXUPlan(*(_mxu_put(a, mesh) for a in st + sw),
-                          shape=(n, d), n_loc=n_loc, d_loc=d_loc,
-                          group=group)
-
-
-def _pad_stack_mxu(plans, G, C, lead_shape, ng_to=None):
-    """Pad a list of per-block direction plans (``_plan_direction_np``
-    6-tuples) to a common group count and stack them with leading shape
-    ``lead_shape``. ``ng_to`` overrides the padded count (multi-controller
-    callers pass the allgathered global max so every device's kernel grid
-    is identical). Dummy groups carry v = 0 and revisit the block's last
-    real output tile, so they accumulate exact zeros."""
-    ng_max = max(p[4].shape[0] for p in plans)
-    if ng_to is not None:
-        assert ng_to >= ng_max, (ng_to, ng_max)
-        ng_max = ng_to
-    out = []
-    for p in plans:
-        vals, glo, slo, ftile, otile, mask = p
-        add = ng_max - otile.shape[0]
-        if add:
-            z = np.zeros((1, add * G * C), vals.dtype)
-            vals = np.concatenate([vals, z], axis=1)
-            zi = np.zeros((1, add * G * C), glo.dtype)
-            glo = np.concatenate([glo, zi], axis=1)
-            slo = np.concatenate([slo, zi], axis=1)
-            ftile = np.concatenate(
-                [ftile, np.zeros((add * G,), np.int32)])
-            # dummy groups revisit the last real otile and add zero
-            otile = np.concatenate(
-                [otile, np.full((add,), otile[-1], np.int32)])
-        out.append((vals, glo, slo, ftile, otile, mask))
-    return [np.stack([p[f] for p in out]).reshape(
-        tuple(lead_shape) + out[0][f].shape) for f in range(6)]
-
-
-def _mxu_put(a, mesh, put=None):
-    """Place one stacked plan array onto ``mesh`` as ``P(dp, tp, ...)``.
-    ``put(a, sharding)`` overrides the single-controller ``device_put``
-    (multi-controller callers assemble from process-local slabs)."""
-    dp, tp = mesh.axis_names
-    spec = P(dp, tp, *([None] * (a.ndim - 2)))
-    sh = NamedSharding(mesh, spec)
-    if put is None:
-        dev = jax.device_put(jnp.asarray(a), sh)
-    else:
-        dev = put(a, sh)
-    if dev.dtype == jnp.uint8:
-        # glo/slo cross the host↔device link narrow (uint8); the
-        # kernel needs int32 — widen once on device. The shared
-        # jitted cast keys its cache on the input sharding and the
-        # elementwise cast propagates it, so the plan stays on the
-        # mesh (asserted: a silent gather here would be a 4× HBM
-        # replication at production nnz).
-        from rri_nmf_tpu.ops.sparse_mxu import _widen_i32
-        dev = _widen_i32(dev)
-        assert dev.sharding.is_equivalent_to(sh, dev.ndim), \
-            'plan widen changed sharding'
-    return dev
-
-
-@lru_cache(maxsize=16)
-def make_sharded_mxu_sweep(cfg: SweepConfig, mesh, interpret=False,
-                           group=8):
-    """shard_map'd phase-order sweep over a :class:`ShardedMXUPlan`:
-    per-device one-hot MXU contractions, numerators + Grams psum over
-    ICI, Gram-blocked GS topic loops device-local. Same call signature
-    as the other sparse sweeps.
-
-    ``group`` must equal the plan's chunk grouping
-    (:attr:`ShardedMXUPlan.group`) — it shapes the kernel grid, so it is
-    part of the cache key (a plan built with a different grouping needs
-    its own compiled sweep)."""
-    assert supports_sharded_sparse(cfg, mesh), \
-        'config not supported by the sharded sparse sweep'
-    k = cfg.k
-    B = _gram_block_size(k)
-    dp, tp = mesh.axis_names
-    dp_size, tp_size = mesh.devices.shape
-
-    from rri_nmf_tpu.ops.sparse_mxu import ContractPlan, mxu_contract
-
-    def make_local(n_glob, d_glob):
-        # built per (n, d) trace — the TRUE global shape drives the exact
-        # padded-column handling (MXU tiles pad n_loc/d_loc to TILE=128
-        # multiples, so ghost columns exist even on a (N, 1) mesh; without
-        # masking, simplex projections leak mass into them)
-        def local_sweep(tv, tg, ts, tf, to, tm, wv, wg, ws, wf, wo, wm,
-                        W, T, *extras):
-            n_loc, d_loc = W.shape[0], T.shape[1]
-            dtype = W.dtype
-            acc = jnp.float32 if dtype in (jnp.bfloat16, jnp.float16) \
-                else dtype
-            w_row_sum_vec = (extras[0].reshape(-1)
-                             if cfg.w_row_sum_is_vector else None)
-            t_proj = (cfg.t_update_s is not None
-                      or (cfg.t_row_sum and cfg.project_T_each_iter))
-            t_valid = (d_glob if (t_proj and d_glob != d_loc * tp_size)
-                       else None)
-            t_mask = None
-            if not t_proj and d_glob != d_loc * tp_size:
-                t_mask = (jnp.arange(d_loc)
-                          + lax.axis_index(tp) * d_loc) < d_glob
-            w_mask = None
-            if n_glob != n_loc * dp_size:
-                w_mask = (jnp.arange(n_loc)
-                          + lax.axis_index(dp) * n_loc) < n_glob
-
-            def local_plan(v, g, s, f, o, m):
-                return ContractPlan(v.reshape(1, -1), g.reshape(1, -1),
-                                    s.reshape(1, -1), f.reshape(-1),
-                                    o.reshape(-1), m.reshape(1, -1))
-
-            if not cfg.fix_T:
-                WX = mxu_contract(local_plan(tv, tg, ts, tf, to, tm), W.T,
-                                  acc, interpret, group=group)  # (k, d_loc)
-                WX = lax.psum(WX, dp)
-                G = lax.psum(jnp.dot(W.T, W, preferred_element_type=acc),
-                             dp)
-                T = gs_topics_blocked(
-                    WX, T, G, k=k, B=B,
-                    reg_l1=cfg.reg_t_l1, reg_l2=cfg.reg_t_l2,
-                    qf_s=cfg.t_update_s, qf_ub=cfg.t_row_sum,
-                    reproject_sum=(cfg.t_row_sum
-                                   if (cfg.t_row_sum and
-                                       cfg.project_T_each_iter) else None),
-                    acc=acc, dtype=dtype, reps=cfg.inner_reps,
-                    valid_cols=t_valid, col_mask=t_mask)
-
-            if not cfg.fix_W:
-                XT = mxu_contract(local_plan(wv, wg, ws, wf, wo, wm), T,
-                                  acc, interpret, group=group)  # (k, n_loc)
-                XT = lax.psum(XT, tp)
-                G2 = lax.psum(jnp.dot(T, T.T, preferred_element_type=acc),
-                              tp)
-                ub = (w_row_sum_vec if cfg.w_row_sum_is_vector
-                      else cfg.w_row_sum)
-                Wt = gs_topics_blocked(
-                    XT, W.T, G2, k=k, B=B,
-                    reg_l1=cfg.reg_w_l1, reg_l2=cfg.reg_w_l2,
-                    qf_s=None, qf_ub=ub, reproject_sum=None,
-                    acc=acc, dtype=dtype, reps=cfg.inner_reps,
-                    col_mask=w_mask)
-                W = Wt.T
-
-            if (cfg.project_W_each_iter and not cfg.fix_W
-                    and (cfg.w_row_sum is not None
-                         or cfg.w_row_sum_is_vector)):
-                if cfg.w_row_sum_is_vector:
-                    s_vec = w_row_sum_vec.astype(dtype)
-                else:
-                    s_vec = jnp.full((n_loc,), cfg.w_row_sum, dtype=dtype)
-                W = jax.vmap(_proj_simplex_core)(W, s_vec)
-                if w_mask is not None:
-                    W = W * w_mask[:, None].astype(dtype)
-
-            return W, T
-        return local_sweep
-
-    data_specs = [P(dp, tp, None, None), P(dp, tp, None, None),
-                  P(dp, tp, None, None), P(dp, tp, None),
-                  P(dp, tp, None), P(dp, tp, None, None)]
-    in_specs = data_specs * 2 + [P(dp, None), P(None, tp)]
-    if cfg.w_row_sum_is_vector:
-        in_specs.append(P(dp))
-
-    def sweep(Xs, W, T, key, resets_left, reset_key, *extras):
-        if Xs.group != group:
-            raise ValueError(
-                'plan group %d does not match the sweep built for group %d'
-                % (Xs.group, group))
-        n, d = Xs.shape
-        sharded = shard_map(make_local(n, d), mesh=mesh,
-                            in_specs=tuple(in_specs),
-                            out_specs=(P(dp, None), P(None, tp)),
-                            check_vma=False)
-        npad = Xs.n_loc * dp_size
-        dpad = Xs.d_loc * tp_size
-        dtype = W.dtype
-        Wp = W if npad == n else \
-            jnp.zeros((npad, k), dtype).at[:n].set(W)
-        Tp = T if dpad == d else \
-            jnp.zeros((k, dpad), dtype).at[:, :d].set(T)
-        Wp = lax.with_sharding_constraint(
-            Wp, NamedSharding(mesh, P(dp, None)))
-        Tp = lax.with_sharding_constraint(
-            Tp, NamedSharding(mesh, P(None, tp)))
-        ex = ()
-        if cfg.w_row_sum_is_vector:
-            v = extras[0].reshape(-1)
-            vp = v if npad == n else \
-                jnp.zeros((npad,), v.dtype).at[:n].set(v)
-            ex = (lax.with_sharding_constraint(
-                vp, NamedSharding(mesh, P(dp))),)
-        Wp, Tp = sharded(
-            Xs.t_vals, Xs.t_gloc, Xs.t_sloc, Xs.t_ftile, Xs.t_otile,
-            Xs.t_mask, Xs.w_vals, Xs.w_gloc, Xs.w_sloc, Xs.w_ftile,
-            Xs.w_otile, Xs.w_mask, Wp, Tp, *ex)
-        return Wp[:n], Tp[:, :d], key, resets_left
-
-    return jax.jit(sweep)

@@ -28,11 +28,12 @@ def main():
     import jax
     jax.config.update('jax_platforms', 'cpu')
     jax.config.update('jax_enable_x64', True)
-    cache = os.environ.get('RRI_NMF_TEST_CACHE')
-    if cache:
-        jax.config.update('jax_compilation_cache_dir', cache)
-        jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.5)
-        jax.config.update('jax_persistent_cache_min_entry_size_bytes', 0)
+    cache = os.environ.get('JAX_COMPILATION_CACHE_DIR') or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        '.cache', 'jax_compile')
+    jax.config.update('jax_compilation_cache_dir', cache)
+    jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.5)
+    jax.config.update('jax_persistent_cache_min_entry_size_bytes', 0)
 
     import numpy as np
 
@@ -46,7 +47,7 @@ def main():
     assert len(jax.local_devices()) == 4 and len(jax.devices()) == 8
 
     # dp = 4 over 2 processes: each process owns 2 consecutive dp rows,
-    # tp = 2 stays inside a process (the DCN-aware layout contract)
+    # tp = 2 stays inside a process (the process-major layout contract)
     mesh = make_global_mesh(mesh_shape=(4, 2))
     procs = np.vectorize(lambda d: d.process_index)(mesh.devices)
     assert (procs == procs[:, :1]).all(), 'tp row spans processes'
@@ -88,8 +89,8 @@ def main():
              random_state=7, compute_obj_each_iter=True, accel='her',
              reset_topic_method=None, update_order='phase',
              project_T_each_iter=True, t_row_sum=1.0)
-    # config E: orbax checkpointing across the process group — every
-    # process writes its own shards; a resumed run ≡ the straight run
+    # config E: checkpointing across the process group — sharded factors
+    # are gathered, process 0 writes; a resumed run ≡ the straight run
     ckdir = os.path.join(outdir, 'ckpt')
     re1 = nmf(Xg, k, W_in=Wg, T_in=Tg, mesh=mesh, max_iter=2,
               random_state=7, compute_obj_each_iter=True,
@@ -144,7 +145,7 @@ def main():
         (n, d), mesh_m)
     plan_gram = distribute_masked_coo(
         Xm_full[lo_m:hi_m], sps.csr_matrix(M_full[lo_m:hi_m]),
-        (n, d), mesh_m, backend='segsum')
+        (n, d), mesh_m, gram=True)
     Wgm, Tgm = distribute_factors(W0[lo_m:hi_m], T0, n, mesh_m)
     rg = nmf(plan_coo, k, W_in=Wgm, T_in=Tgm, mesh=mesh_m, max_iter=4,
              random_state=7, compute_obj_each_iter=True,
@@ -157,9 +158,8 @@ def main():
     # config I/J: multi-controller UNMASKED sparse corpora
     # (distribute_sparse_coo slabs — the corpus never exists on one
     # host). I: BCOO plan on the (4, 2) mesh (a tp axis IS supported on
-    # the unmasked path); J: MXU chunk plan on (8, 1) — with n=64 the
-    # 128-rounded row quantum puts EVERY row on process 0, so process 1
-    # drives the empty-slab degenerate path (all-padding plans).
+    # the unmasked path); J: BCOO plan on the (8, 1) row layout with the
+    # T-row simplex projection (rows device-local).
     rngs = np.random.RandomState(4)
     Xs_full = sps.csr_matrix(
         rngs.rand(n, d) * (rngs.rand(n, d) < 0.3))
@@ -170,10 +170,8 @@ def main():
              random_state=7, compute_obj_each_iter=True,
              early_stop=False, project_W_each_iter=True, w_row_sum=1.0,
              reg_t_l2=0.05, reset_topic_method=None)
-    lo_s, hi_s = process_row_block(n, mesh_m, tile=128)
-    assert (lo_s, hi_s) == ((0, 64) if pid == 0 else (64, 64))
-    plan_mx = distribute_sparse_coo(Xs_full[lo_s:hi_s], (n, d), mesh_m,
-                                    dtype=np.float64, backend='mxu')
+    plan_mx = distribute_sparse_coo(Xs_full[lo_m:hi_m], (n, d), mesh_m,
+                                    dtype=np.float64)
     Wgs, Tgs = distribute_factors(W0[lo_m:hi_m], T0, n, mesh_m)
     rj = nmf(plan_mx, k, W_in=Wgs, T_in=Tgs, mesh=mesh_m, max_iter=4,
              random_state=7, compute_obj_each_iter=True,

@@ -1,9 +1,9 @@
 """HER extrapolation (ops/accel.py; nmf(accel='her')).
 
 The reference has no acceleration scheme at all — HER is the rebuild's
-answer to the ill-conditioned convergence plateau documented by
-benchmarks/results_round3_control.json (reference algorithm in f64 NumPy
-stalls ~1.5e-3 on U[0,1]-factor data)."""
+answer to the ill-conditioned convergence plateau of plain RRI/HALS (the
+reference algorithm in f64 NumPy stalls around 1e-3 on U[0,1]-factor
+data)."""
 
 import jax
 import numpy as np

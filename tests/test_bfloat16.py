@@ -1,9 +1,8 @@
 """Mixed-precision (bfloat16 storage, float32 accumulation) mode.
 
-On TPU this halves the sweep's HBM traffic (measured 1.83x throughput, see
-bench notes); these CPU tests pin that the mode stays numerically sane:
-monotone descent under the f32-evaluated objective and convergence toward
-the f32 solution.
+It halves the bytes of X the sweep reads; these CPU tests pin that the
+mode stays numerically sane: monotone descent under the f32-evaluated
+objective and convergence toward the f32 solution.
 """
 
 import jax.numpy as jnp
@@ -31,14 +30,12 @@ def test_bf16_dense_monotone_and_converges():
 
 
 def test_bf16_pallas_masked_descends():
-    """The fused Pallas masked sweep under bfloat16 storage (f32
-    accumulators) keeps the f32-evaluated objective decreasing. Exact
-    agreement with the XLA bf16 sweep is not expected — bf16 threshold
-    decisions diverge chaotically between equally valid trajectories."""
+    """The masked sweep under bfloat16 storage (f32 accumulators) keeps
+    the f32-evaluated objective decreasing."""
     import jax
     import jax.numpy as jnp
-    from rri_nmf_tpu.ops.sweep_xla import SweepConfig, make_objective
-    from rri_nmf_tpu.ops.sweep_pallas import make_masked_sweep_pallas
+    from rri_nmf_tpu.ops.sweep_xla import (SweepConfig, make_objective,
+                                           make_sweep)
 
     X = _problem(seed=4).astype(np.float32)
     M = (np.random.RandomState(5).rand(*X.shape) < 0.6).astype(np.float32)
@@ -50,7 +47,7 @@ def test_bf16_pallas_masked_descends():
 
     cfg = SweepConfig(k=3, masked=True, reset_topic_method=None,
                       t_row_sum=1.0)
-    sweep = make_masked_sweep_pallas(cfg, interpret=True)
+    sweep = make_sweep(cfg)
     obj = make_objective(masked=True, row_weighted=False)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
@@ -103,7 +100,11 @@ def test_mixed_x_dtype_interleaved_resets_run():
 
 def test_mixed_x_dtype_mesh_parity():
     """Sharded dense sweep under mixed storage: factors stay f32 and the
-    mesh run matches the single-device mixed run."""
+    mesh run matches the single-device mixed run. The GEMMs run at
+    'highest' so the factor operand is not rounded to bf16: under the
+    default precision that rounding turns the mesh's different (correct)
+    psum order into bf16-ulp jumps that grow over sweeps, and parity
+    would not be defined."""
     import jax
     from rri_nmf_tpu.parallel import make_mesh
 
@@ -112,7 +113,7 @@ def test_mixed_x_dtype_mesh_parity():
     kw = dict(k=4, max_iter=6, random_state=0, early_stop=False,
               reset_topic_method=None, update_order='phase',
               dtype='float32', x_dtype='bfloat16',
-              use_pallas='interpret')
+              matmul_precision='highest', use_pallas='interpret')
     single = nmf(X, **kw)
     meshed = nmf(X, mesh=mesh, **kw)
     assert meshed['W'].dtype == np.float32
@@ -121,28 +122,28 @@ def test_mixed_x_dtype_mesh_parity():
 
 
 def test_mixed_x_dtype_dense_pallas_single_device():
-    """The fused dense GS kernels under mixed storage (the true
-    north-star code path), in interpreter mode, on UNALIGNED shapes so
-    the pad buffers exercise the decoupled dtypes (X pads bf16, factor
-    tiles pad f32). Parity vs the XLA sweep on the same bf16 X."""
+    """The dense phase sweep with the GS kernel under mixed storage, in
+    interpreter mode, on shapes off the kernel's tile so the pad buffers
+    exercise the decoupled dtypes (X bf16, factor tiles f32). Parity vs
+    the XLA sweep on the same bf16 X."""
     import jax
     import jax.numpy as jnp
-    from rri_nmf_tpu.ops.dense_pallas import make_dense_phase_sweep_pallas
+    from rri_nmf_tpu.ops.dense_phase import make_dense_phase_sweep
     from rri_nmf_tpu.ops.sweep_xla import SweepConfig, make_sweep
 
     rng = np.random.RandomState(8)
-    n, d, k = 140, 100, 5          # 140 % BN != 0, 100 % BD != 0
+    n, d, k = 140, 100, 5          # off every power of two
     Xb = jnp.asarray(rng.rand(n, d), jnp.bfloat16)
     W0 = jnp.asarray(np.abs(rng.rand(n, k)), jnp.float32)
     T0 = jnp.asarray(np.abs(rng.rand(k, d)), jnp.float32)
     cfg = SweepConfig(k=k, reset_topic_method=None, update_order='phase')
     key = jax.random.PRNGKey(0)
     rl = jnp.asarray(0, jnp.int32)
-    Wp, Tp, _, _ = make_dense_phase_sweep_pallas(cfg, interpret=True)(
+    Wp, Tp, _, _ = make_dense_phase_sweep(cfg, 'interpret')(
         Xb, W0, T0, key, rl, key)
     Wx, Tx, _, _ = make_sweep(cfg)(Xb, W0, T0, key, rl, key)
     assert Wp.dtype == jnp.float32 and Tp.dtype == jnp.float32
-    # the kernel path down-casts the factor GEMM operand to bf16 (the
+    # the dense phase path down-casts the factor GEMM operand to bf16 (the
     # XLA path promotes), so agreement is at bf16-rounding tolerance
     assert np.allclose(np.asarray(Wp), np.asarray(Wx), atol=0.02)
     assert np.allclose(np.asarray(Tp), np.asarray(Tx), atol=0.02)

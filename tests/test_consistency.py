@@ -346,8 +346,7 @@ def test_reset_conds_carry_row_col_payloads_only():
     in the traced program returns only vectors (a T row, a W column, a
     key) — never a factor matrix. Carrying (W, T) through branch tuples
     makes XLA materialize fresh copies of both factors per topic even on
-    the never-taken branch (~92 µs/cond on TPU at the TM headline shape,
-    results_round3_tm_interleaved.json)."""
+    the never-taken branch."""
     import jax
     import jax.numpy as jnp
     from rri_nmf_tpu.ops.sweep_xla import SweepConfig, make_sweep

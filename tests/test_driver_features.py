@@ -193,8 +193,8 @@ def test_n_le_k_forces_random_init():
 def test_matmul_precision_kwarg():
     """matmul_precision threads through to the sweeps and the objective
     (on CPU f64 the precision context is a no-op, so results must match
-    the default exactly — the knob matters on TPU, where the default f32
-    dot is a single bf16 MXU pass)."""
+    the default exactly — the knob matters on a GPU, where the default
+    f32 dot runs in TF32)."""
     import numpy as np
     from rri_nmf_tpu.nmf import nmf
     rng = np.random.RandomState(0)

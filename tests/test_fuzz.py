@@ -56,7 +56,7 @@ def _sample_config(rng):
     # seeds' configs are unchanged. The appended re-fit history tracks a
     # DIFFERENT objective (unscaled X), so monotone checks don't apply.
     cfg['_draw_w_row'] = (not masked and rng.rand() < 0.15)
-    # float32 (the TPU's production dtype; everything above runs f64) —
+    # float32 (the GPU's production dtype; everything above runs f64) —
     # also drawn last. Consumers must widen their tolerances.
     cfg['_draw_f32'] = rng.rand() < 0.15
     return cfg, masked
@@ -315,8 +315,7 @@ def test_random_config_mesh_parity(seed):
 
 def sparse_parity_draw(seed):
     """One randomized sparse-vs-dense differential draw: a driver fit on
-    scipy-sparse X (BCOO sweep, or the tile-bucketed MXU chunk kernel,
-    optionally mesh-sharded) must match the dense fit on the same matrix —
+    scipy-sparse X (BCOO sweep, optionally mesh-sharded) must match the dense fit on the same matrix —
     same math, different X representation, so only contraction-order
     roundoff may differ. Samples the sparse-viable config space (phase
     order, no resets/mask/w_row — the driver enforces it) crossed with
@@ -349,23 +348,25 @@ def sparse_parity_draw(seed):
     if rng.rand() < 0.3:
         cfg['sweeps_per_dispatch'] = 3
     if rng.rand() < 0.4:
-        # nndsvd-family inits run sklearn's randomized_svd, which takes the
+        # nndsvd-family inits run randomized_svd, which takes the
         # sparse matrix directly — bit-different from the dense input only
         # at matmul roundoff, absorbed by the 1e-8 parity tolerance
         cfg['init'] = str(rng.choice(
             ['random', 'smart_random', 'nndsvd', 'nndsvda']))
-    mode = ['auto', True, 'mxu'][int(rng.randint(3))]
+    # the third draw once named a removed kernel mode; it now runs the
+    # forced sparse sweep with the kernel's topic loop in interpret mode
+    # (the draws stay, so every seed keeps its config)
+    _m = int(rng.randint(3))
+    mode = ['auto', True, True][_m]
     mesh = None
-    if mode in (True, 'mxu') and rng.rand() < 0.35:
+    if mode is True and rng.rand() < 0.35:
         # tp > 1 composes with sparse mode only without the T-row simplex
         # projection (the row must be device-local to sort)
         shapes = [(8, 1)] if cfg.get('project_T_each_iter') \
             else [(8, 1), (4, 2)]
         mesh = make_mesh(8, mesh_shape=shapes[int(rng.randint(len(shapes)))])
-    # the manual-DMA chunk kernel (single-device only) — drawn LAST so
-    # earlier seeds' configs are unchanged
-    if mode == 'mxu' and mesh is None and rng.rand() < 0.25:
-        mode = 'dma'
+    if _m == 2 and mesh is None:
+        rng.rand()
     # multi-controller plan entry (single-process here): route the mesh
     # fit through a distribute_sparse_coo plan passed directly as X —
     # also drawn after everything else for seed stability
@@ -385,12 +386,11 @@ def sparse_parity_draw(seed):
         from rri_nmf_tpu.parallel import distribute_sparse_coo
         plan = distribute_sparse_coo(
             scipy.sparse.csr_matrix(X), (n, d), mesh,
-            dtype=np.asarray(X).dtype,
-            backend='mxu' if mode == 'mxu' else None)
+            dtype=np.asarray(X).dtype)
         sp = nmf(plan, k, mesh=mesh, **kw)
     else:
-        sp = nmf(scipy.sparse.csr_matrix(X), k, sparse=mode,
-                 mesh=mesh, **kw)
+        sp = nmf(scipy.sparse.csr_matrix(X), k, sparse=mode, mesh=mesh,
+                 use_pallas='interpret' if _m == 2 else None, **kw)
     ctx = str((cfg, mode, mesh is not None and mesh.devices.shape))
     np.testing.assert_allclose(sp['W'], dense['W'], atol=1e-8, err_msg=ctx)
     np.testing.assert_allclose(sp['T'], dense['T'], atol=1e-8, err_msg=ctx)

@@ -14,7 +14,7 @@ import scipy.sparse
 from rri_nmf_tpu.nmf import nmf
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig, make_sweep
 from rri_nmf_tpu.ops.sweep_sparse import make_sparse_sweep, to_bcoo
-from rri_nmf_tpu.ops.dense_pallas import make_dense_phase_sweep_pallas
+from rri_nmf_tpu.ops.dense_phase import make_dense_phase_sweep
 
 
 def _problem(n=60, d=40, k=5, seed=0):
@@ -70,7 +70,7 @@ def test_inner_reps_pallas_matches_xla():
     cfg = SweepConfig(k=5, reset_topic_method=None, update_order='phase',
                       inner_reps=3)
     a = make_sweep(cfg)
-    b = make_dense_phase_sweep_pallas(cfg, interpret=True)
+    b = make_dense_phase_sweep(cfg, 'interpret')
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     Wa, Ta, _, _ = a(jnp.asarray(X), jnp.asarray(W0), jnp.asarray(T0),

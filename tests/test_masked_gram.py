@@ -1,5 +1,5 @@
 """Gram-phase masked sweep (ops/sweep_masked_gram.py): parity with a
-naive NumPy phase-order masked oracle, mxu-vs-segsum backend parity, the
+naive NumPy phase-order masked oracle, chunked segment-sum parity, the
 Gram objective identity, driver routing/fallbacks, and inner_reps reuse.
 
 The oracle computes the per-topic masked quantities directly from the
@@ -95,7 +95,7 @@ def _problem(seed, n=30, d=24, k=4, density=0.35):
     return X, M, W0, T0
 
 
-def _run_gram(X, M, W0, T0, sweeps, backend='segsum', **kw):
+def _run_gram(X, M, W0, T0, sweeps, **kw):
     """Drive make_masked_gram_sweep directly (f64, no driver layers)."""
     import jax
     import jax.numpy as jnp
@@ -107,9 +107,8 @@ def _run_gram(X, M, W0, T0, sweeps, backend='segsum', **kw):
     cfg = SweepConfig(k=W0.shape[1], masked=True, masked_sparse=True,
                       update_order='phase', reset_topic_method=None,
                       **kw)
-    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64,
-                            backend=backend)
-    sweep = make_masked_gram_sweep(cfg, backend=backend)
+    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64)
+    sweep = make_masked_gram_sweep(cfg)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
@@ -192,7 +191,7 @@ def test_vector_w_row_sum_matches_oracle():
                       update_order='phase', reset_topic_method=None,
                       w_row_sum_is_vector=True, project_W_each_iter=True)
     plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64)
-    sweep = make_masked_gram_sweep(cfg, backend='segsum')
+    sweep = make_masked_gram_sweep(cfg)
     key = jax.random.PRNGKey(0)
     W, T, _, _ = sweep(plan, jnp.asarray(W0), jnp.asarray(T0), key,
                        jnp.asarray(0, jnp.int32), key, jnp.asarray(wrs))
@@ -204,25 +203,21 @@ def test_vector_w_row_sum_matches_oracle():
 
 
 def test_mxu_segmented_plan_matches_segsum(monkeypatch):
-    """Plans beyond the SMEM prefetch ceiling split into several
-    pallas_calls whose mask-selected partials sum exactly; force tiny
-    segments and check parity (and that splitting actually happened)."""
-    import rri_nmf_tpu.ops.sweep_masked_gram as smg
-    monkeypatch.setattr(smg, 'MAX_PREFETCH_CHUNKS', 2 * 8)  # 2 groups
-    # 3x2 tile grid, ~2 chunks per tile pair -> several groups per
-    # direction, far above the forced 2-group ceiling
-    X, M, W0, T0 = _problem(12, n=300, d=200, k=4, density=0.5)
-    plan = smg.plan_masked_gram(X, sp.csr_matrix(M), np.float64,
-                                backend='mxu')
-    assert len(plan.m_t) > 1 and len(plan.m_w) > 1
-    assert len(plan.mx_t_vals) == len(plan.m_t)
-    t1 = _run_gram(X, M, W0, T0, 1, backend='segsum')
+    """The segment sums run over observation chunks (bounded O(chunk·k²)
+    temporaries): a tiny chunk — several full chunks plus a remainder —
+    gives the same sweep and objective as one chunk."""
     import jax
     import jax.numpy as jnp
+    import rri_nmf_tpu.ops.sweep_masked_gram as smg
     from rri_nmf_tpu.ops.sweep_xla import SweepConfig
+    X, M, W0, T0 = _problem(12, n=300, d=200, k=4, density=0.5)
+    t1 = _run_gram(X, M, W0, T0, 1)
+    monkeypatch.setattr(smg, '_SEG_CHUNK', 997)
+    plan = smg.plan_masked_gram(X, sp.csr_matrix(M), np.float64)
+    assert plan.nnz > 3 * 997
     cfg = SweepConfig(k=4, masked=True, masked_sparse=True,
                       update_order='phase', reset_topic_method=None)
-    sweep = smg.make_masked_gram_sweep.__wrapped__(cfg, backend='mxu')
+    sweep = smg.make_masked_gram_sweep.__wrapped__(cfg)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
@@ -230,20 +225,27 @@ def test_mxu_segmented_plan_matches_segsum(monkeypatch):
         W, T, key, r = sweep(plan, W, T, key, r, key)
         np.testing.assert_allclose(np.array(W), W1, atol=1e-9, rtol=0)
         np.testing.assert_allclose(np.array(T), T1, atol=1e-9, rtol=0)
-    # the Gram objective sums the same segments
-    fn = smg.make_masked_gram_objective(backend='mxu')
+    fn = smg.make_masked_gram_objective()
     direct = 0.5 * np.sum(M * (X - np.array(W) @ np.array(T)) ** 2)
     np.testing.assert_allclose(float(fn(plan, W, T)), direct, rtol=1e-9)
 
 
-def test_mxu_backend_matches_segsum():
-    """The chunked MXU contraction plans (interpret mode off-TPU) and the
-    segment-sum backend agree — same Γ/Θ/A/C bilinear forms."""
+@pytest.mark.parametrize('chunk', [7, 64])
+def test_mxu_backend_matches_segsum(monkeypatch, chunk):
+    """Chunked segment sums at chunk sizes that do and do not divide the
+    padded observation count agree with the one-chunk sweep on the full
+    TM constraint set."""
+    import rri_nmf_tpu.ops.sweep_masked_gram as smg
     X, M, W0, T0 = _problem(7, n=40, d=33, k=5)
     kw = dict(project_T_each_iter=True, t_row_sum=1.0, w_row_sum=1.0,
               project_W_each_iter=True)
-    t1 = _run_gram(X, M, W0, T0, 2, backend='segsum', **kw)
-    t2 = _run_gram(X, M, W0, T0, 2, backend='mxu', **kw)
+    t1 = _run_gram(X, M, W0, T0, 2, **kw)
+    monkeypatch.setattr(smg, '_SEG_CHUNK', chunk)
+    smg.make_masked_gram_sweep.cache_clear()
+    try:
+        t2 = _run_gram(X, M, W0, T0, 2, **kw)
+    finally:
+        smg.make_masked_gram_sweep.cache_clear()
     for (W1, T1), (W2, T2) in zip(t1, t2):
         np.testing.assert_allclose(W2, W1, atol=1e-9, rtol=0)
         np.testing.assert_allclose(T2, T1, atol=1e-9, rtol=0)
@@ -251,7 +253,7 @@ def test_mxu_backend_matches_segsum():
 
 def test_gram_objective_identity():
     """‖√M⊙(X−WT)‖² via the Gram identity equals the direct masked
-    objective, both backends."""
+    objective."""
     import jax.numpy as jnp
 
     from rri_nmf_tpu.ops.sweep_masked_gram import (
@@ -264,13 +266,10 @@ def test_gram_objective_identity():
         + 0.5 * regs['reg_t_l2'] * np.sum(T0 ** 2) \
         + regs['reg_w_l1'] * np.sum(np.abs(W0)) \
         + regs['reg_t_l1'] * np.sum(np.abs(T0))
-    for backend in ('segsum', 'mxu'):
-        plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64,
-                                backend=backend)
-        fn = make_masked_gram_objective(backend=backend, **regs)
-        got = float(fn(plan, jnp.asarray(W0), jnp.asarray(T0)))
-        np.testing.assert_allclose(got, direct, rtol=1e-10,
-                                   err_msg=backend)
+    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64)
+    fn = make_masked_gram_objective(**regs)
+    got = float(fn(plan, jnp.asarray(W0), jnp.asarray(T0)))
+    np.testing.assert_allclose(got, direct, rtol=1e-10)
 
 
 def _driver_kw(**extra):
@@ -340,12 +339,12 @@ def test_driver_gram_inner_reps_stepped_equals_batch():
 def test_driver_fallbacks_to_interleaved():
     """phase + (resets | huge Gram) falls back to the interleaved masked
     sweep — bitwise equal to asking for interleaved directly, and LOUD:
-    a RuntimeWarning names the declined gate and the measured cost ratio
-    (VERDICT r4 weak #2: an 85x perf cliff must not hide at INFO)."""
+    a RuntimeWarning names the declined gate and the cost (a perf cliff
+    must not hide at INFO)."""
     X, M, _, _ = _problem(3)
     Ms = sp.csr_matrix(M)
     kw = _driver_kw(reset_topic_method='random', n_resets=2)
-    with pytest.warns(RuntimeWarning, match='85x slower'):
+    with pytest.warns(RuntimeWarning, match=r'k O\(nnz\) passes'):
         rp = nmf(X, 4, W_mat=Ms, update_order='phase', **kw)
     ri = nmf(X, 4, W_mat=Ms, update_order='interleaved', **kw)
     np.testing.assert_array_equal(rp['W'], ri['W'])
@@ -415,19 +414,15 @@ def test_rs_estimator_gram_recipe():
 
 
 def test_plan_masked_gram_layouts():
-    """The mask and mask⊙X value vectors share one chunk-slot layout, and
-    sum_mx2 is the exact observed second moment."""
+    """The plan's COO arrays are padded with zero-weight entries, sum_mx2
+    is the exact observed second moment, and the plan round-trips to
+    scipy."""
     from rri_nmf_tpu.ops.sweep_masked_gram import plan_masked_gram
     X, M, _, _ = _problem(11, n=21, d=13)
-    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64,
-                            backend='mxu')
-    assert plan.backend == 'mxu'
-    assert len(plan.mx_t_vals) == len(plan.m_t)
-    assert len(plan.mx_w_vals) == len(plan.m_w)
-    for v, p in zip(plan.mx_t_vals, plan.m_t):
-        assert v.shape == p.vals.shape
-    for v, p in zip(plan.mx_w_vals, plan.m_w):
-        assert v.shape == p.vals.shape
+    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64)
+    assert plan.nnz == int(M.sum())
+    assert plan.coo.rows.shape[0] >= plan.nnz
+    assert float(np.asarray(plan.coo.m_vals)[plan.nnz:].sum()) == 0.0
     np.testing.assert_allclose(float(plan.sum_mx2),
                                np.sum(M * X ** 2), rtol=1e-12)
     Ms2, Xs2 = plan.to_scipy()
@@ -438,7 +433,7 @@ def test_plan_masked_gram_layouts():
 # k-panel tiling (VERDICT r5 item 3): Γ/Θ built in (p, k, ·) tiles
 # ---------------------------------------------------------------------------
 
-def _run_gram_panel(X, M, W0, T0, sweeps, panel, backend='segsum', **kw):
+def _run_gram_panel(X, M, W0, T0, sweeps, panel, **kw):
     import jax
     import jax.numpy as jnp
 
@@ -449,9 +444,8 @@ def _run_gram_panel(X, M, W0, T0, sweeps, panel, backend='segsum', **kw):
     cfg = SweepConfig(k=W0.shape[1], masked=True, masked_sparse=True,
                       update_order='phase', reset_topic_method=None,
                       **kw)
-    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64,
-                            backend=backend)
-    sweep = make_masked_gram_sweep(cfg, backend=backend, panel=panel)
+    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64)
+    sweep = make_masked_gram_sweep(cfg, panel=panel)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
@@ -484,12 +478,18 @@ def test_panel_sweep_bitwise_equals_full(panel, kw):
         np.testing.assert_allclose(T2, T1, atol=1e-13, rtol=0)
 
 
-def test_panel_sweep_mxu_backend():
-    """Panel contractions on the chunked MXU plans (interpret mode)
-    match the segsum panel path."""
+def test_panel_sweep_mxu_backend(monkeypatch):
+    """Panel contractions over small observation chunks match the
+    one-chunk panel path."""
+    import rri_nmf_tpu.ops.sweep_masked_gram as smg
     X, M, W0, T0 = _problem(22, n=40, d=33, k=5)
-    t1 = _run_gram_panel(X, M, W0, T0, 2, 2, backend='segsum')
-    t2 = _run_gram_panel(X, M, W0, T0, 2, 2, backend='mxu')
+    t1 = _run_gram_panel(X, M, W0, T0, 2, 2)
+    monkeypatch.setattr(smg, '_SEG_CHUNK', 13)
+    smg.make_masked_gram_sweep.cache_clear()
+    try:
+        t2 = _run_gram_panel(X, M, W0, T0, 2, 2)
+    finally:
+        smg.make_masked_gram_sweep.cache_clear()
     for (W1, T1), (W2, T2) in zip(t1, t2):
         np.testing.assert_allclose(W2, W1, atol=1e-9, rtol=0)
         np.testing.assert_allclose(T2, T1, atol=1e-9, rtol=0)
@@ -500,44 +500,31 @@ def test_panel_objective_matches_full():
         make_masked_gram_objective, plan_masked_gram)
     import jax.numpy as jnp
     X, M, W0, T0 = _problem(23, k=5)
-    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64,
-                            backend='segsum')
+    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64)
     regs = dict(reg_w_l2=0.02, reg_t_l1=0.003)
-    full = make_masked_gram_objective(backend='segsum', **regs)
-    tiled = make_masked_gram_objective(backend='segsum', panel=2, **regs)
+    full = make_masked_gram_objective(**regs)
+    tiled = make_masked_gram_objective(panel=2, **regs)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
     np.testing.assert_allclose(float(tiled(plan, W, T)),
                                float(full(plan, W, T)), rtol=1e-13)
 
 
 def test_auto_panel_policy():
-    from rri_nmf_tpu.ops.sweep_masked_gram import (VMEM_GRAM_ROWS,
-        auto_panel)
+    from rri_nmf_tpu.ops.capability import device_bytes_limit
+    from rri_nmf_tpu.ops.sweep_masked_gram import (GRAM_BUDGET_FRACTION,
+        auto_panel, gram_budget_bytes)
+    # the default budget is a share of what the device reports
+    assert gram_budget_bytes() == GRAM_BUDGET_FRACTION * \
+        device_bytes_limit()
     # tiny problem: full tensors fit
     assert auto_panel(8, 100, 80, 8) is None
-    # k=128 at the round-4 record shape, f32: full Γ/Θ would be 98 GB —
-    # panels engage with 1 <= p < k
-    p = auto_panel(128, 100_000, 50_000, 4)
+    # k=128 at the 100k×50k shape, f32: full Γ/Θ would be 98 GB — on a
+    # 4 GB budget panels engage with 1 <= p < k
+    p = auto_panel(128, 100_000, 50_000, 4, budget=4e9)
     assert p is not None and 1 <= p < 128
     assert p * 128 * 150_000 * 4 <= 4e9
-    # on the TPU 'mxu' backend the panel's Khatri-Rao row block must
-    # also respect the kernel's scoped-VMEM ceiling (p=52 fit HBM but
-    # failed to COMPILE on TPU: 6656-row factor blocks -> 58.5 MB
-    # scoped vmem vs the 16 MB Mosaic limit)
-    p_mxu = auto_panel(128, 100_000, 50_000, 4, mxu=True)
-    assert p_mxu is not None and 1 <= p_mxu < 128
-    assert p_mxu * 128 <= VMEM_GRAM_ROWS
-    # mid-range k on mxu: Γ/Θ fit the HBM budget but the stacked
-    # full-tensor contraction (k + k(k+1)/2 rows) exceeds the VMEM
-    # ceiling -> panels; the segsum/XLA backends keep the one-pass
-    # full-tensor path (no Mosaic limit — forcing panels there was a
-    # silent k>=50 slowdown on CPU)
-    p64 = auto_panel(64, 10_000, 5_000, 4, mxu=True)
-    assert p64 is not None and 1 <= p64 < 64
-    assert p64 * 64 <= VMEM_GRAM_ROWS
-    assert auto_panel(64, 10_000, 5_000, 4, mxu=False) is None
-    # auto-detect: CPU default backend has no VMEM cap
-    assert auto_panel(64, 10_000, 5_000, 4) is None
+    # a budget that holds the full tensors keeps the one-pass path
+    assert auto_panel(64, 10_000, 5_000, 4, budget=4e9) is None
     # absurd k: even one panel row over budget -> 0 (decline)
     assert auto_panel(10_000_000, 1_000_000, 1_000_000, 8) == 0
 
@@ -553,7 +540,7 @@ def test_driver_routes_large_k_to_panels(monkeypatch):
     r_full = nmf(X, 4, W_mat=Ms, update_order='phase', **kw)
     # shrink the budget so k=4 at (40, 30) needs 2-panels
     unit = 4 * (40 + 30) * 8
-    monkeypatch.setattr(smg, 'GRAM_BUDGET_BYTES', 2 * unit)
+    monkeypatch.setattr(smg, 'gram_budget_bytes', lambda: 2 * unit)
     r_tiled = nmf(X, 4, W_mat=Ms, update_order='phase', **kw)
     np.testing.assert_allclose(np.asarray(r_tiled['W']),
                                np.asarray(r_full['W']), atol=1e-13)

@@ -1,10 +1,10 @@
 """Mesh-sharded Gram-phase masked sweep (parallel/masked_gram_mesh.py):
 parity with the single-device Gram sweep on the 8-virtual-device CPU
-mesh, backend parity (segsum vs chunked MXU plans in interpret mode),
-the sharded Gram objective identity, and driver routing.
+mesh, chunked segment-sum parity, the sharded Gram objective identity,
+and driver routing.
 
-Round-5 VERDICT item 2: the 85x-vs-interleaved Gram path must run
-distributed — one psum per T-phase, zero W-phase communication. The
+The Gram path runs distributed — one psum per T-phase, zero W-phase
+communication. The
 single-device sweep is itself pinned against a NumPy phase-order oracle
 (tests/test_masked_gram.py), so parity here transitively pins the mesh
 sweep to the oracle.
@@ -42,10 +42,8 @@ def _cfg(k, **kw):
 def _run_single(X, M, W0, T0, sweeps, **kw):
     from rri_nmf_tpu.ops.sweep_masked_gram import (make_masked_gram_sweep,
                                                    plan_masked_gram)
-    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64,
-                            backend='segsum')
-    sweep = make_masked_gram_sweep(_cfg(W0.shape[1], **kw),
-                                   backend='segsum')
+    plan = plan_masked_gram(X, sp.csr_matrix(M), np.float64)
+    sweep = make_masked_gram_sweep(_cfg(W0.shape[1], **kw))
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
@@ -56,14 +54,11 @@ def _run_single(X, M, W0, T0, sweeps, **kw):
     return out
 
 
-def _run_mesh(X, M, W0, T0, sweeps, mesh, backend='segsum', **kw):
+def _run_mesh(X, M, W0, T0, sweeps, mesh, **kw):
     from rri_nmf_tpu.parallel.masked_gram_mesh import (
         make_sharded_masked_gram_sweep, partition_masked_gram)
-    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64,
-                                 backend=backend)
-    sweep = make_sharded_masked_gram_sweep(
-        _cfg(W0.shape[1], **kw), mesh, backend=backend,
-        group=plan.group)
+    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64)
+    sweep = make_sharded_masked_gram_sweep(_cfg(W0.shape[1], **kw), mesh)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
@@ -101,16 +96,27 @@ def test_mesh_matches_single_device(kw):
         np.testing.assert_allclose(T2, T1, atol=1e-12, rtol=0)
 
 
+def _fresh_mesh_sweeps():
+    from rri_nmf_tpu.parallel import masked_gram_mesh as mgm
+    mgm.make_sharded_masked_gram_sweep.cache_clear()
+
+
 @requires_8_devices
-def test_mesh_mxu_backend_matches_segsum():
-    """Per-device chunked MXU plans under shard_map (interpret mode
-    off-TPU) == the segsum mesh backend."""
+def test_mesh_mxu_backend_matches_segsum(monkeypatch):
+    """Per-device segment sums over small observation chunks (several
+    full chunks + a remainder per device) == one-chunk mesh sweep."""
+    import rri_nmf_tpu.parallel.masked_gram_mesh as mgm
     X, M, W0, T0 = _problem(7, n=40, d=33, k=5)
     mesh = make_mesh(8, mesh_shape=(8, 1))
     kw = dict(project_T_each_iter=True, t_row_sum=1.0, w_row_sum=1.0,
               project_W_each_iter=True)
-    t1 = _run_mesh(X, M, W0, T0, 2, mesh, backend='segsum', **kw)
-    t2 = _run_mesh(X, M, W0, T0, 2, mesh, backend='mxu', **kw)
+    t1 = _run_mesh(X, M, W0, T0, 2, mesh, **kw)
+    monkeypatch.setattr(mgm, '_SEG_CHUNK', 5)
+    _fresh_mesh_sweeps()
+    try:
+        t2 = _run_mesh(X, M, W0, T0, 2, mesh, **kw)
+    finally:
+        _fresh_mesh_sweeps()
     for (W1, T1), (W2, T2) in zip(t1, t2):
         np.testing.assert_allclose(W2, W1, atol=1e-9, rtol=0)
         np.testing.assert_allclose(T2, T1, atol=1e-9, rtol=0)
@@ -118,13 +124,11 @@ def test_mesh_mxu_backend_matches_segsum():
 
 @requires_8_devices
 def test_mesh_mxu_segmented_and_padded_plans(monkeypatch):
-    """Uneven per-device chunk counts are padded to a common size and
-    split at forced-tiny SMEM segment boundaries; partials still sum
-    exactly (padding groups revisit the last real tile with zero
-    values)."""
+    """Skewed per-device observation counts: device blocks are padded to
+    a common length with zero-weight entries and summed in small chunks;
+    the mesh sweep and the sharded Gram objective still match the
+    single-device sweep and the direct objective."""
     import rri_nmf_tpu.parallel.masked_gram_mesh as mgm
-    monkeypatch.setattr(mgm, 'MAX_PREFETCH_CHUNKS', 2 * 8)  # 2 groups
-    # skewed density: device row blocks get very different nnz
     rng = np.random.RandomState(12)
     n, d, k = 300, 200, 4
     dens = np.linspace(0.05, 0.7, n)[:, None]
@@ -134,20 +138,19 @@ def test_mesh_mxu_segmented_and_padded_plans(monkeypatch):
     T0 = np.abs(rng.rand(k, d))
     mesh = make_mesh(8, mesh_shape=(8, 1))
     plan = mgm.partition_masked_gram(X, sp.csr_matrix(M), mesh,
-                                     np.float64, backend='mxu')
-    assert len(plan.m_t) > 1 and len(plan.m_w) > 1
-    t1 = _run_mesh(X, M, W0, T0, 1, mesh, backend='segsum')
-    sweep = mgm.make_sharded_masked_gram_sweep.__wrapped__(
-        _cfg(k), mesh, backend='mxu', group=plan.group)
+                                     np.float64)
+    counts = np.asarray(plan.coo.m_vals).astype(bool).sum(axis=1)
+    assert counts.min() < counts.max() // 4       # skew is real
+    t1 = _run_single(X, M, W0, T0, 1)
+    monkeypatch.setattr(mgm, '_SEG_CHUNK', 512)
+    sweep = mgm.make_sharded_masked_gram_sweep.__wrapped__(_cfg(k), mesh)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
     W, T, key, r = sweep(plan, W, T, key, r, key)
     np.testing.assert_allclose(np.array(W), t1[0][0], atol=1e-9, rtol=0)
     np.testing.assert_allclose(np.array(T), t1[0][1], atol=1e-9, rtol=0)
-    # the sharded Gram objective sums the same segments
-    fn = mgm.make_sharded_masked_gram_objective(mesh, backend='mxu',
-                                                group=plan.group)
+    fn = mgm.make_sharded_masked_gram_objective(mesh)
     direct = 0.5 * np.sum(M * (X - np.array(W) @ np.array(T)) ** 2)
     np.testing.assert_allclose(float(fn(plan, W, T)), direct, rtol=1e-9)
 
@@ -160,10 +163,8 @@ def test_mesh_objective_identity_with_regs():
     mesh = make_mesh(8, mesh_shape=(8, 1))
     regs = dict(reg_w_l2=0.02, reg_t_l2=0.01, reg_w_l1=0.005,
                 reg_t_l1=0.003)
-    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64,
-                                 backend='segsum')
-    fn = make_sharded_masked_gram_objective(mesh, backend='segsum',
-                                            **regs)
+    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64)
+    fn = make_sharded_masked_gram_objective(mesh, **regs)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
     direct = (0.5 * np.sum(M * (X - W0 @ T0) ** 2)
               + 0.5 * regs['reg_w_l2'] * np.sum(W0 ** 2)
@@ -266,8 +267,7 @@ def test_driver_mesh_gram_fix_T_transform():
 def masked_gram_mesh_draw(seed):
     """One randomized mesh-vs-single-device Gram parity draw: random
     shapes (ghost rows likely), random config (projections, regs,
-    inner_reps, DP noise, fix_T), random backend (segsum, occasionally
-    interpret-mode mxu on small shapes), 2 sweeps, 1e-10 f64 parity.
+    inner_reps, DP noise, fix_T), 2 sweeps, 1e-10 f64 parity.
     Occasionally drives the premade-plan nmf() entry instead of the raw
     sweeps."""
     if jax.device_count() < 8:
@@ -293,7 +293,7 @@ def masked_gram_mesh_draw(seed):
         kw['inner_reps'] = int(rng.randint(2, 4))
     if rng.rand() < 0.15:
         kw['fix_T'] = True
-    backend = 'mxu' if (rng.rand() < 0.2 and n * d <= 1200) else 'segsum'
+    rng.rand()       # keeps later draws of each seed unchanged
     mesh = make_mesh(8, mesh_shape=(8, 1))
 
     if rng.rand() < 0.3:
@@ -313,7 +313,7 @@ def masked_gram_mesh_draw(seed):
                    **{kk: v for kk, v in kw.items()
                       if kk not in ('fix_T',)})
         plan = distribute_masked_coo(X, sps.csr_matrix(M), (n, d), mesh,
-                                     backend='segsum')
+                                     gram=True)
         Wg, Tg = distribute_factors(W0, T0, n, mesh)
         rp = nmf(plan, k, W_in=Wg, T_in=Tg, mesh=mesh, **dkw)
         ro = nmf(X, k, W_mat=sps.csr_matrix(M), W_in=W0, T_in=T0, **dkw)
@@ -326,12 +326,12 @@ def masked_gram_mesh_draw(seed):
         return
 
     ts = _run_single(X, M, W0, T0, 2, **kw)
-    tm = _run_mesh(X, M, W0, T0, 2, mesh, backend=backend, **kw)
+    tm = _run_mesh(X, M, W0, T0, 2, mesh, **kw)
     for (W1, T1), (W2, T2) in zip(ts, tm):
         np.testing.assert_allclose(W2, W1, atol=1e-10, rtol=0,
-                                   err_msg=repr((seed, kw, backend)))
+                                   err_msg=repr((seed, kw)))
         np.testing.assert_allclose(T2, T1, atol=1e-10, rtol=0,
-                                   err_msg=repr((seed, kw, backend)))
+                                   err_msg=repr((seed, kw)))
 
 
 @pytest.mark.parametrize('seed', range(4))
@@ -344,15 +344,12 @@ def test_masked_gram_mesh_fuzz_prefix(seed):
 # k-panel tiling on the mesh (round-5: large-k recommender fits distribute)
 # ---------------------------------------------------------------------------
 
-def _run_mesh_panel(X, M, W0, T0, sweeps, mesh, panel,
-                    backend='segsum', **kw):
+def _run_mesh_panel(X, M, W0, T0, sweeps, mesh, panel, **kw):
     from rri_nmf_tpu.parallel.masked_gram_mesh import (
         make_sharded_masked_gram_sweep, partition_masked_gram)
-    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64,
-                                 backend=backend)
+    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64)
     sweep = make_sharded_masked_gram_sweep(
-        _cfg(W0.shape[1], **kw), mesh, backend=backend,
-        group=plan.group, panel=panel)
+        _cfg(W0.shape[1], **kw), mesh, panel=panel)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
@@ -388,11 +385,19 @@ def test_mesh_panel_bitwise_equals_full(panel, kw):
 
 
 @requires_8_devices
-def test_mesh_panel_mxu_backend():
+def test_mesh_panel_mxu_backend(monkeypatch):
+    """Mesh panel contractions over small observation chunks == the
+    one-chunk panel path."""
+    import rri_nmf_tpu.parallel.masked_gram_mesh as mgm
     X, M, W0, T0 = _problem(32, n=40, d=33, k=5)
     mesh = make_mesh(8, mesh_shape=(8, 1))
-    t1 = _run_mesh_panel(X, M, W0, T0, 2, mesh, 2, backend='segsum')
-    t2 = _run_mesh_panel(X, M, W0, T0, 2, mesh, 2, backend='mxu')
+    t1 = _run_mesh_panel(X, M, W0, T0, 2, mesh, 2)
+    monkeypatch.setattr(mgm, '_SEG_CHUNK', 3)
+    _fresh_mesh_sweeps()
+    try:
+        t2 = _run_mesh_panel(X, M, W0, T0, 2, mesh, 2)
+    finally:
+        _fresh_mesh_sweeps()
     for (W1, T1), (W2, T2) in zip(t1, t2):
         np.testing.assert_allclose(W2, W1, atol=1e-9, rtol=0)
         np.testing.assert_allclose(T2, T1, atol=1e-9, rtol=0)
@@ -401,8 +406,8 @@ def test_mesh_panel_mxu_backend():
 @requires_8_devices
 def test_driver_mesh_routes_large_k_to_panels(monkeypatch):
     """A mesh masked phase fit whose full Gram tensors exceed the budget
-    now engages the panel-tiled mesh sweep (round 4 fell back to the
-    ~85x interleaved order) and matches the full-tensor mesh fit."""
+    engages the panel-tiled mesh sweep (not the interleaved order) and
+    matches the full-tensor mesh fit."""
     import rri_nmf_tpu.ops.sweep_masked_gram as smg
     X, M, _, _ = _problem(33, n=40, d=30, k=4)
     Ms = sp.csr_matrix(M)
@@ -412,7 +417,7 @@ def test_driver_mesh_routes_large_k_to_panels(monkeypatch):
               reg_t_l1=0.01, mesh=mesh)
     r_full = nmf(X, 4, W_mat=Ms, **kw)
     unit = 4 * (40 / 8 + 30) * 8
-    monkeypatch.setattr(smg, 'GRAM_BUDGET_BYTES', 2 * unit)
+    monkeypatch.setattr(smg, 'gram_budget_bytes', lambda: 2 * unit)
     r_tiled = nmf(X, 4, W_mat=Ms, **kw)
     np.testing.assert_allclose(np.asarray(r_tiled['W']),
                                np.asarray(r_full['W']), atol=1e-13)
@@ -422,19 +427,19 @@ def test_driver_mesh_routes_large_k_to_panels(monkeypatch):
 
 
 @requires_8_devices
-@pytest.mark.parametrize('backend', ['segsum', 'mxu'])
-def test_mesh_panel_objective_matches_full(backend):
+@pytest.mark.parametrize('backend', ['one_chunk', 'small_chunks'])
+def test_mesh_panel_objective_matches_full(backend, monkeypatch):
     from rri_nmf_tpu.parallel.masked_gram_mesh import (
         make_sharded_masked_gram_objective, partition_masked_gram)
     X, M, W0, T0 = _problem(34, k=5)
     mesh = make_mesh(8, mesh_shape=(8, 1))
-    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64,
-                                 backend=backend)
+    if backend == 'small_chunks':
+        import rri_nmf_tpu.parallel.masked_gram_mesh as mgm
+        monkeypatch.setattr(mgm, '_SEG_CHUNK', 4)
+    plan = partition_masked_gram(X, sp.csr_matrix(M), mesh, np.float64)
     regs = dict(reg_w_l2=0.02, reg_t_l1=0.003)
-    full = make_sharded_masked_gram_objective(
-        mesh, backend=backend, group=plan.group, **regs)
-    tiled = make_sharded_masked_gram_objective(
-        mesh, backend=backend, group=plan.group, panel=2, **regs)
+    full = make_sharded_masked_gram_objective(mesh, **regs)
+    tiled = make_sharded_masked_gram_objective(mesh, panel=2, **regs)
     W, T = jnp.asarray(W0), jnp.asarray(T0)
     np.testing.assert_allclose(float(tiled(plan, W, T)),
                                float(full(plan, W, T)), rtol=1e-12)

@@ -277,9 +277,9 @@ def test_plan_padding_and_roundtrip():
 def test_plan_padding_preserves_sorted_rows():
     """seg_rows promises ``indices_are_sorted=True`` to segment_sum, so
     the padded row stream must be GLOBALLY non-decreasing — zero-index
-    tail padding after sorted real rows violated the contract (a TPU
-    sorted-scatter lowering may mis-sum; the CPU backend ignores the
-    hint, which is why only an index audit can pin this)."""
+    tail padding after sorted real rows violated the contract (an
+    accelerator's sorted-scatter lowering may mis-sum; the CPU backend
+    ignores the hint, which is why only an index audit can pin this)."""
     from rri_nmf_tpu.ops.sweep_masked_sparse import plan_masked_coo
     X, M = _problem(29, n=23, d=9, density=0.4)
     plan = plan_masked_coo(X, sp.csr_matrix(M), np.float64)

@@ -118,26 +118,22 @@ def test_distribute_masked_coo_single_process():
     np.testing.assert_allclose(np.asarray(rp['T']), np.asarray(ro['T']),
                                atol=1e-10)
 
-    # 'mxu' chunk plans (interpret mode off-TPU) value-match the
-    # single-controller partitioner's
-    plan_mx = distribute_masked_coo(X[lo:hi], Ms[lo:hi], (n, d), mesh,
-                                    backend='mxu')
+    # Gram-phase plans value-match the single-controller partitioner's
+    plan_gm = distribute_masked_coo(X[lo:hi], Ms[lo:hi], (n, d), mesh,
+                                    gram=True)
     from rri_nmf_tpu.parallel.masked_gram_mesh import \
         partition_masked_gram
-    ref_mx = partition_masked_gram(X, Ms, mesh, np.dtype(np.float64),
-                                   backend='mxu')
-    assert len(plan_mx.m_t) == len(ref_mx.m_t)
-    for a, b in zip(plan_mx.m_t, ref_mx.m_t):
-        np.testing.assert_array_equal(np.asarray(a.vals),
-                                      np.asarray(b.vals))
-        np.testing.assert_array_equal(np.asarray(a.otile),
-                                      np.asarray(b.otile))
-    np.testing.assert_array_equal(np.asarray(plan_mx.mx_w_vals[0]),
-                                  np.asarray(ref_mx.mx_w_vals[0]))
+    ref_gm = partition_masked_gram(X, Ms, mesh, np.dtype(np.float64))
+    assert plan_gm.n_loc == ref_gm.n_loc and plan_gm.nnz == ref_gm.nnz
+    for f in ('rows', 'cols', 'x_vals', 'm_vals'):
+        np.testing.assert_array_equal(np.asarray(getattr(plan_gm.coo, f)),
+                                      np.asarray(getattr(ref_gm.coo, f)))
+    np.testing.assert_allclose(float(plan_gm.sum_mx2),
+                               float(ref_gm.sum_mx2), rtol=1e-14)
 
     # Gram-phase plan: phase order, monotone, parity, live objective
     plan_g = distribute_masked_coo(X[lo:hi], Ms[lo:hi], (n, d), mesh,
-                                   backend='segsum')
+                                   gram=True)
     kwg = dict(max_iter=4, random_state=7, compute_obj_each_iter=True,
                reset_topic_method=None, update_order='phase',
                reg_t_l1=0.01)
@@ -151,25 +147,24 @@ def test_distribute_masked_coo_single_process():
 
 
 def test_process_row_block_tiled():
-    """The tile-aware row quantum (`tile=128`, the MXU plan layout)
-    stays clamped and covering for any n — including n small enough
-    that later dp rows own EMPTY ranges (the multi-controller
-    empty-slab case the 2-process tests drive end-to-end)."""
+    """The row block stays clamped and covering for any n — including n
+    small enough that later dp rows own EMPTY ranges (the
+    multi-controller empty-slab case the 2-process tests drive
+    end-to-end)."""
     for shape in ((8, 1), (4, 2)):
         mesh = make_mesh(8, mesh_shape=shape)
         dp = shape[0]
         for n in (64, 128, 129, 1024, 3, 1000):
-            lo, hi = process_row_block(n, mesh, tile=128)
+            lo, hi = process_row_block(n, mesh)
             # single process owns everything, clamped to n
             assert (lo, hi) == (0, n), (shape, n, lo, hi)
-            # the quantum matches partition_mxu's TILE-rounded n_loc
-            per = -(-(-(-n // dp)) // 128) * 128
-            assert per % 128 == 0 and per * dp >= n
+            per = -(-n // dp)
+            assert per * dp >= n
 
 
 def test_distribute_sparse_coo_single_process():
-    """Single-process distribute_sparse_coo == partition_coo /
-    partition_mxu value-wise, and the plan drives nmf() directly — the
+    """Single-process distribute_sparse_coo == partition_coo value-wise,
+    and the plan drives nmf() directly — the
     multi-controller UNMASKED sparse entry (the corpus never exists on
     one host; reference densifies all sparse input,
     sklearn_interface.py:78-83)."""
@@ -178,7 +173,6 @@ def test_distribute_sparse_coo_single_process():
     from rri_nmf_tpu.parallel import (distribute_factors,
         distribute_sparse_coo, make_global_mesh, partition_coo,
         process_row_block)
-    from rri_nmf_tpu.parallel.sparse_mesh import partition_mxu
 
     # n divides both dp extents (distribute_factors shards W rows over
     # dp); d deliberately off the tp quantum — the sweep pads internally
@@ -213,28 +207,21 @@ def test_distribute_sparse_coo_single_process():
     np.testing.assert_allclose(rp['obj_history'], ro['obj_history'],
                                atol=1e-10)
 
-    # 'mxu' chunk plans (TILE-rounded row quanta -> tile-aware loader
-    # range) value-match partition_mxu and carry the obj companion
+    # the (8, 1) row layout: same plan, same fit as the single-device
+    # sparse sweep
     mesh1 = make_global_mesh(mesh_shape=(8, 1))
-    lo, hi = process_row_block(n, mesh1, tile=128)
+    lo, hi = process_row_block(n, mesh1)
     assert (lo, hi) == (0, n)
-    plan_mx = distribute_sparse_coo(X[lo:hi], (n, d), mesh1,
-                                    dtype=np.float64, backend='mxu')
-    ref_mx = partition_mxu(X, mesh1, np.dtype(np.float64))
-    assert plan_mx.n_loc == ref_mx.n_loc
-    assert plan_mx.group == ref_mx.group
-    for f in plan_mx._fields:
-        np.testing.assert_array_equal(np.asarray(getattr(plan_mx, f)),
-                                      np.asarray(getattr(ref_mx, f)))
-    assert plan_mx.obj_coo is not None
+    plan1 = distribute_sparse_coo(X[lo:hi], (n, d), mesh1,
+                                  dtype=np.float64)
     Wg, Tg = distribute_factors(W0, T0, n, mesh1)
-    rmx = nmf(plan_mx, W_in=Wg, T_in=Tg, mesh=mesh1, **kw)
-    rmo = nmf(X, sparse='mxu', W_in=W0, T_in=T0, mesh=mesh1, **kw)
-    np.testing.assert_allclose(np.asarray(rmx['W']),
-                               np.asarray(rmo['W']), atol=1e-10)
-    np.testing.assert_allclose(rmx['obj_history'], rmo['obj_history'],
+    r1 = nmf(plan1, W_in=Wg, T_in=Tg, mesh=mesh1, **kw)
+    r0 = nmf(X, sparse=True, W_in=W0, T_in=T0, **kw)
+    np.testing.assert_allclose(np.asarray(r1['W']),
+                               np.asarray(r0['W']), atol=1e-10)
+    np.testing.assert_allclose(r1['obj_history'], r0['obj_history'],
                                atol=1e-10)
-    assert np.all(np.diff(rmx['obj_history']) <= 1e-12)
+    assert np.all(np.diff(r1['obj_history']) <= 1e-12)
 
 
 def test_distribute_sparse_coo_guards():
@@ -255,8 +242,8 @@ def test_distribute_sparse_coo_guards():
         distribute_sparse_coo(X[:10], (n, d), mesh)
     with pytest.raises(ValueError, match='columns'):
         distribute_sparse_coo(X[:, :10], (n, d), mesh)
-    with pytest.raises(ValueError, match='backend'):
-        distribute_sparse_coo(X, (n, d), mesh, backend='bogus')
+    with pytest.raises(TypeError):
+        distribute_sparse_coo(X, (n, d), mesh, backend='mxu')
 
     plan = distribute_sparse_coo(X, (n, d), mesh, dtype=np.float64)
     # plan input needs explicit warm starts
@@ -281,7 +268,7 @@ def test_distribute_sparse_coo_guards():
     with pytest.raises(ValueError, match='conflicts'):
         nmf(plan, k, W_in=W0, T_in=T0, mesh=mesh, max_iter=2,
             sparse=False)
-    with pytest.raises(ValueError, match='rebuild'):
+    with pytest.raises(ValueError, match='sparse must be one of'):
         nmf(plan, k, W_in=W0, T_in=T0, mesh=mesh, max_iter=2,
             sparse='mxu')
     # mesh mismatch: plan partitioned for another dp count
@@ -300,16 +287,6 @@ def test_distribute_sparse_coo_guards():
     with pytest.raises(ValueError, match='host X'):
         nmf(plan, k, W_in=W0, T_in=T0, mesh=mesh, max_iter=2,
             early_stop=lambda X, W, T, d2: False)
-    # MXU plan without the COO companion refuses objective tracking
-    plan_nc = distribute_sparse_coo(X, (n, d), mesh, dtype=np.float64,
-                                    backend='mxu', with_obj_coo=False)
-    assert plan_nc.obj_coo is None
-    with pytest.raises(ValueError, match='with_obj_coo'):
-        nmf(plan_nc, k, W_in=W0, T_in=T0, mesh=mesh, max_iter=2,
-            compute_obj_each_iter=True, early_stop=False)
-    r = nmf(plan_nc, k, W_in=W0, T_in=T0, mesh=mesh, max_iter=2,
-            compute_obj_each_iter=False, early_stop=False)
-    assert np.isfinite(np.asarray(r['W'])).all()
 
 
 def test_distribute_masked_coo_guards():
@@ -333,16 +310,15 @@ def test_distribute_masked_coo_guards():
         distribute_masked_coo(X, M, (n, d), mesh)
     with pytest.raises(ValueError, match='process_row_block'):
         distribute_masked_coo(X[:10], Ms[:10], (n, d), mesh)
-    with pytest.raises(ValueError, match='backend'):
-        distribute_masked_coo(X, Ms, (n, d), mesh, backend='bogus')
+    with pytest.raises(TypeError):
+        distribute_masked_coo(X, Ms, (n, d), mesh, backend='segsum')
 
     plan = distribute_masked_coo(X, Ms, (n, d), mesh)
     # plan input needs explicit warm starts
     with pytest.raises(ValueError, match='W_in AND T_in'):
         nmf(plan, k, mesh=mesh, max_iter=2)
     # gram plan built for phase order refuses interleaved
-    plan_g = distribute_masked_coo(X, Ms, (n, d), mesh,
-                                   backend='segsum')
+    plan_g = distribute_masked_coo(X, Ms, (n, d), mesh, gram=True)
     W0 = np.abs(rng.rand(n, k))
     T0 = np.abs(rng.rand(k, d))
     with pytest.raises(ValueError, match='phase'):

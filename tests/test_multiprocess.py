@@ -142,8 +142,7 @@ def test_multiprocess_matches_single_controller(group_results):
     np.testing.assert_allclose(r0['ohH'], rh['obj_history'], rtol=1e-11)
 
     # unmasked sparse multi-controller fits (distribute_sparse_coo
-    # slabs) match the single-controller sparse oracles — including the
-    # MXU plan whose 128-rounded row quantum left process 1's slab empty
+    # slabs) match the single-controller sparse oracles
     rngs = np.random.RandomState(4)
     Xs_full = sps.csr_matrix(
         rngs.rand(n, d) * (rngs.rand(n, d) < 0.3))
@@ -154,7 +153,7 @@ def test_multiprocess_matches_single_controller(group_results):
     np.testing.assert_allclose(r0['WI'], ri['W'], atol=1e-10)
     np.testing.assert_allclose(r0['TI'], ri['T'], atol=1e-10)
     np.testing.assert_allclose(r0['ohI'], ri['obj_history'], rtol=1e-11)
-    rj = nmf(Xs_full, k, sparse='mxu', W_in=W0, T_in=T0, max_iter=4,
+    rj = nmf(Xs_full, k, sparse=True, W_in=W0, T_in=T0, max_iter=4,
              random_state=7, compute_obj_each_iter=True,
              early_stop=False, project_T_each_iter=True, t_row_sum=1.0,
              reset_topic_method=None)

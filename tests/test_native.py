@@ -49,55 +49,6 @@ def test_column_df():
     assert np.array_equal(native.column_df(X), [1, 0, 2])
 
 
-@pytest.mark.parametrize('G', [1, 8])
-@pytest.mark.parametrize('idx_dtype', [np.int32, np.int64])
-def test_plan_counting_sort_matches_sort_path(G, idx_dtype):
-    """The native two-pass counting-sort bucketing produces the same plan
-    as the NumPy argsort path: identical structural fields (ftile, otile,
-    mask) and the same scatter-reconstructed tile content (within-chunk
-    slot ORDER may differ for multi-chunk buckets — the kernel sums slot
-    triples, so any consistent (v, g, s) placement is equivalent)."""
-    import rri_nmf_tpu.native as nat
-    import rri_nmf_tpu.ops.sparse_mxu as sm
-    if not native.available():
-        pytest.skip('no native library')
-    rng = np.random.RandomState(5)
-    n, d, C = 300, 520, 128
-    Xd = rng.rand(n, d) * (rng.rand(n, d) < 0.02)
-    ii, jj = np.nonzero(Xd)
-    g = ii.astype(idx_dtype)
-    s = jj.astype(idx_dtype)
-    v = Xd[ii, jj]
-    ngt, nst = -(-n // 128), -(-d // 128)
-    counts = native.plan_hist(g, s, ngt, nst)
-    pc = sm._plan_direction_counting_np(g, s, v, counts, ngt, nst, C, G,
-                                        np.float64)
-    saved = nat.plan_hist
-    nat.plan_hist = lambda *a: None        # force the sort fallback
-    try:
-        ps = sm._plan_direction_np(g, s, v, ngt, nst, C, G, np.float64)
-    finally:
-        nat.plan_hist = saved
-    assert np.array_equal(pc[3], ps[3])    # ftile
-    assert np.array_equal(pc[4], ps[4])    # otile
-    assert np.array_equal(pc[5], ps[5])    # mask
-
-    def reconstruct(p):
-        vals, gl, sl, ft, ot = (p[0].ravel(), p[1].ravel(), p[2].ravel(),
-                                p[3], p[4])
-        nch = ft.shape[0]
-        per = nch // len(ot)               # chunks per otile entry (G)
-        acc = np.zeros((nst * 128, ngt * 128))
-        for c in range(nch):
-            o = ot[c // per]
-            sl_c = slice(c * C, (c + 1) * C)
-            np.add.at(acc, (o * 128 + sl[sl_c], ft[c] * 128 + gl[sl_c]),
-                      vals[sl_c])
-        return acc
-
-    assert np.allclose(reconstruct(pc), reconstruct(ps))
-
-
 def test_coo_duplicates_accumulate_like_scipy():
     """Duplicate (i, j) triples must SUM (scipy.sparse.coo_matrix semantics,
     reference sklearn_interface.py:78-83) and the mask must come from the
@@ -126,8 +77,8 @@ def test_coo_duplicates_accumulate_like_scipy():
 def test_stale_abi_library_rebuilt(tmp_path):
     """A width-incompatible _nmfdata.so whose mtime survived a copy must
     be detected by the ABI version check and rebuilt from source — the
-    mtime guard alone cannot catch it, and a stale plan_scatter would
-    write 4 bytes per uint8 slot (heap corruption). Also exercises the
+    mtime guard alone cannot catch it, and a stale library may export
+    other signatures than the bindings declare. Also exercises the
     pathname-cache workaround: dlopen caches by path string, so the fresh
     build is loaded through a unique temp path."""
     if not native.available():
@@ -136,7 +87,7 @@ def test_stale_abi_library_rebuilt(tmp_path):
     import subprocess
 
     src = native._SRC.read_text()
-    stale_src = src.replace('nmfdata_abi_version(void) { return 2; }',
+    stale_src = src.replace('nmfdata_abi_version(void) { return 3; }',
                             'nmfdata_abi_version(void) { return 1; }')
     assert stale_src != src
     stale_cpp = tmp_path / 'stale.cpp'
@@ -153,9 +104,8 @@ def test_stale_abi_library_rebuilt(tmp_path):
     native._tried = False
     try:
         assert native.available(), 'ABI mismatch should trigger a rebuild'
-        counts = native.plan_hist(np.array([0, 129]), np.array([0, 129]),
-                                  2, 2)
-        assert counts is not None and counts.tolist() == [1, 0, 0, 1]
+        df = native.column_df(np.array([[1.0, 0.0], [2.0, 0.0]]))
+        assert df.tolist() == [2, 0]
     finally:
         # leave a good library + fresh loader state for later tests
         native._lib = None
@@ -176,9 +126,8 @@ def test_corrupt_library_rebuilt():
     native._tried = False
     try:
         assert native.available(), 'corrupt .so should be rebuilt'
-        counts = native.plan_hist(np.array([0, 129]), np.array([0, 129]),
-                                  2, 2)
-        assert counts.tolist() == [1, 0, 0, 1]
+        df = native.column_df(np.array([[1.0, 0.0], [2.0, 0.0]]))
+        assert df.tolist() == [2, 0]
     finally:
         native._lib = None
         native._tried = False

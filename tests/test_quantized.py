@@ -1,6 +1,6 @@
 """int16 column-scaled X storage (``x_dtype='int16'`` / ``QuantizedX``).
 
-Round-4 beyond-HBM storage mode (``ops/quantized.py``): same 2
+Compact X storage (``ops/quantized.py``): same 2
 bytes/entry as bf16 at ~70x less quantization noise. These tests pin:
 
 - the code round-trip (encode error bound, exact zeros, scale folding);
@@ -13,8 +13,8 @@ bytes/entry as bf16 at ~70x less quantization noise. These tests pin:
 - NNDSVD/smart_random init on the quantized form vs the dequantized
   dense form;
 - the 16-bit init regression: ``randomized_svd_jax`` on a bf16-stored X
-  must match the f32 computation (the all-bf16 chain dead-topiced 40/256
-  at the north-star half shape — ``results_round4_init_bf16.json``).
+  must match the f32 computation (an all-bf16 chain loses the tail
+  spectrum below bf16 eps and dead-topics components).
 """
 
 import numpy as np
@@ -76,9 +76,9 @@ class TestSweepParity:
         dict(fix_T=True),
         dict(w_row_sum=1.0, project_W_each_iter=True),
     ])
-    def test_phase_sweep_parity(self, cfg_kw):
-        from rri_nmf_tpu.ops.dense_pallas import (
-            make_dense_phase_sweep_pallas)
+    @pytest.mark.parametrize('gs', ['xla', 'interpret'])
+    def test_phase_sweep_parity(self, cfg_kw, gs):
+        from rri_nmf_tpu.ops.dense_phase import make_dense_phase_sweep
         X = _problem()
         n, d, k = X.shape[0], X.shape[1], 6
         qx = quantize_x(jnp.asarray(X))
@@ -88,8 +88,7 @@ class TestSweepParity:
         T = jnp.asarray(rng.rand(k, d))
         cfg = SweepConfig(k=k, reset_topic_method=None,
                           update_order='phase', **cfg_kw)
-        sw = make_dense_phase_sweep_pallas(
-            cfg, interpret=jax.default_backend() == 'cpu')
+        sw = make_dense_phase_sweep(cfg, gs)
         key = jax.random.PRNGKey(0)
         rl = jnp.asarray(0, jnp.int32)
         for _ in range(3):
@@ -123,16 +122,14 @@ class TestSweepParity:
 
     def test_her_parity(self):
         from rri_nmf_tpu.ops.accel import make_her_step, make_residual_obj
-        from rri_nmf_tpu.ops.dense_pallas import (
-            make_dense_phase_sweep_pallas)
+        from rri_nmf_tpu.ops.dense_phase import make_dense_phase_sweep
         X = _problem()
         k = 6
         qx = quantize_x(jnp.asarray(X))
         Xdq = dequantize_x(qx)
         cfg = SweepConfig(k=k, reset_topic_method=None,
                           update_order='phase')
-        sw = make_dense_phase_sweep_pallas(
-            cfg, interpret=jax.default_backend() == 'cpu')
+        sw = make_dense_phase_sweep(cfg, 'xla')
         obj = make_residual_obj(cfg)
         step = make_her_step(sw, obj)
         rng = np.random.RandomState(3)
@@ -276,11 +273,10 @@ class TestMesh:
     def test_sharded_phase_sweep_parity(self):
         """QuantizedX through the shard_map dense sweep == single-device
         (8 virtual CPU devices, conftest)."""
-        from rri_nmf_tpu.ops.dense_pallas import (
-            make_dense_phase_sweep_pallas)
+        from rri_nmf_tpu.ops.dense_phase import make_dense_phase_sweep
         from rri_nmf_tpu.parallel.mesh import make_mesh
         from rri_nmf_tpu.parallel.sharded_dense import (
-            make_sharded_dense_sweep_pallas)
+            make_sharded_dense_sweep)
         if len(jax.devices()) < 4:
             pytest.skip('needs the virtual device mesh')
         mesh = make_mesh(4, mesh_shape=(2, 2))
@@ -294,8 +290,8 @@ class TestMesh:
                           update_order='phase', mesh=mesh)
         cfg1 = SweepConfig(k=k, reset_topic_method=None,
                            update_order='phase')
-        sw_m = make_sharded_dense_sweep_pallas(cfg, mesh, interpret=True)
-        sw_1 = make_dense_phase_sweep_pallas(cfg1, interpret=True)
+        sw_m = make_sharded_dense_sweep(cfg, mesh, gs='interpret')
+        sw_1 = make_dense_phase_sweep(cfg1, 'interpret')
         key = jax.random.PRNGKey(0)
         rl = jnp.asarray(0, jnp.int32)
         Wm, Tm, _, _ = sw_m(qx, W, T, key, rl, key)

@@ -1,10 +1,11 @@
-"""Mesh-sharded dense GS-kernel sweep (parallel/sharded_dense.py).
+"""Mesh-sharded dense phase sweep (parallel/sharded_dense.py).
 
-Parity pins: the shard_map'd hybrid sweep (psum'd Grams/numerators +
-per-device Pallas GS kernels, interpret-mode on the virtual CPU mesh)
-must reproduce the single-chip dense GS sweep and the XLA GSPMD mesh
-path exactly — the per-device topic subproblems are bitwise the global
-ones (T columns / W rows are independent within a phase)."""
+Parity pins: the shard_map'd sweep (psum'd Grams/numerators + per-device
+Gauss-Seidel loops — the Triton kernel in interpret mode and the XLA
+loop — on the virtual CPU mesh) must reproduce the single-device dense
+phase sweep and the XLA GSPMD mesh path exactly — the per-device topic
+subproblems are bitwise the global ones (T columns / W rows are
+independent within a phase)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,11 +13,13 @@ import numpy as np
 import pytest
 
 from rri_nmf_tpu.nmf import nmf
-from rri_nmf_tpu.ops.dense_pallas import make_dense_phase_sweep_pallas
+from rri_nmf_tpu.ops.dense_phase import (make_dense_phase_sweep,
+                                         supports_dense_phase)
 from rri_nmf_tpu.ops.sweep_xla import SweepConfig
 from rri_nmf_tpu.parallel.mesh import make_mesh
-from rri_nmf_tpu.parallel.sharded_dense import (
-    make_sharded_dense_sweep_pallas, supports_sharded_dense)
+from rri_nmf_tpu.parallel.sharded_dense import make_sharded_dense_sweep
+
+GS = pytest.mark.parametrize('gs', ['interpret', 'xla'])
 
 
 def _problem(n=100, d=80, k=6, seed=0):
@@ -33,35 +36,38 @@ def _run(sweep, X, W, T):
     return np.array(W1), np.array(T1)
 
 
+@GS
 @pytest.mark.parametrize('mesh_shape', [(8, 1), (4, 2)])
-def test_sharded_dense_matches_single_chip(mesh_shape):
+def test_sharded_dense_matches_single_chip(mesh_shape, gs):
     X, W0, T0 = _problem()
     cfg = SweepConfig(k=6, reset_topic_method=None, update_order='phase',
                       reg_t_l2=0.02, reg_w_l1=0.01)
-    assert supports_sharded_dense(cfg)
+    assert supports_dense_phase(cfg)
     mesh = make_mesh(8, mesh_shape=mesh_shape)
-    a = make_dense_phase_sweep_pallas(cfg, interpret=True)
-    b = make_sharded_dense_sweep_pallas(cfg, mesh, interpret=True)
+    a = make_dense_phase_sweep(cfg, gs)
+    b = make_sharded_dense_sweep(cfg, mesh, gs=gs)
     Wa, Ta = _run(a, X, W0, T0)
     Wb, Tb = _run(b, X, W0, T0)
     assert np.allclose(Wa, Wb, atol=1e-11)
     assert np.allclose(Ta, Tb, atol=1e-11)
 
 
-def test_sharded_dense_inner_reps_parity():
+@GS
+def test_sharded_dense_inner_reps_parity(gs):
     X, W0, T0 = _problem(seed=1)
     cfg = SweepConfig(k=6, reset_topic_method=None, update_order='phase',
                       inner_reps=3)
     mesh = make_mesh(8, mesh_shape=(4, 2))
-    a = make_dense_phase_sweep_pallas(cfg, interpret=True)
-    b = make_sharded_dense_sweep_pallas(cfg, mesh, interpret=True)
+    a = make_dense_phase_sweep(cfg, gs)
+    b = make_sharded_dense_sweep(cfg, mesh, gs=gs)
     Wa, Ta = _run(a, X, W0, T0)
     Wb, Tb = _run(b, X, W0, T0)
     assert np.allclose(Wa, Wb, atol=1e-11)
     assert np.allclose(Ta, Tb, atol=1e-11)
 
 
-def test_sharded_dense_w_row_sum_vector():
+@GS
+def test_sharded_dense_w_row_sum_vector(gs):
     """Per-row W bound vector: sharded over dp, padded rows inert."""
     X, W0, T0 = _problem(seed=2)
     ub = 0.5 + np.random.RandomState(3).rand(100)
@@ -69,8 +75,8 @@ def test_sharded_dense_w_row_sum_vector():
                       w_row_sum=None, w_row_sum_is_vector=True,
                       project_W_each_iter=True)
     mesh = make_mesh(8, mesh_shape=(8, 1))
-    a = make_dense_phase_sweep_pallas(cfg, interpret=True)
-    b = make_sharded_dense_sweep_pallas(cfg, mesh, interpret=True)
+    a = make_dense_phase_sweep(cfg, gs)
+    b = make_sharded_dense_sweep(cfg, mesh, gs=gs)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
     Wa, Ta, _, _ = a(jnp.asarray(X), jnp.asarray(W0), jnp.asarray(T0),
@@ -83,7 +89,7 @@ def test_sharded_dense_w_row_sum_vector():
 
 def test_driver_mesh_dense_pallas_parity():
     """nmf(mesh=..., use_pallas='interpret') on a dense phase-order config
-    routes to the sharded dense GS kernels and matches both the
+    routes to the sharded dense phase sweep and matches both the
     single-device run and the XLA GSPMD mesh path."""
     X, _, _ = _problem(n=96, d=64, seed=4)
     kw = dict(k=5, max_iter=4, random_state=0, early_stop=False,
@@ -113,18 +119,18 @@ def test_driver_mesh_dense_pallas_tm_preset():
     assert np.allclose(single['T'], sharded['T'], atol=1e-11)
 
 
+@GS
 @pytest.mark.parametrize('mesh_shape', [(8, 1), (2, 4)])
-def test_sharded_tm_projection_matches_single_chip(mesh_shape):
-    """Per-topic T simplex projection on the mesh: the tp-gathered
-    whole-panel projected kernel must reproduce the single-chip fused
-    TM kernel exactly (same Michelot fixpoints on the same rows)."""
+def test_sharded_tm_projection_matches_single_chip(mesh_shape, gs):
+    """Per-topic T simplex projection on the mesh: the projected loop on
+    tp-gathered whole rows must reproduce the single-device projected
+    phase exactly (same projections on the same rows)."""
     X, W0, T0 = _problem(n=96, d=72, k=5, seed=6)
     cfg = SweepConfig(k=5, reset_topic_method=None, update_order='phase',
                       project_T_each_iter=True, t_row_sum=1.0)
-    assert supports_sharded_dense(cfg, d=72)
     mesh = make_mesh(8, mesh_shape=mesh_shape)
-    a = make_dense_phase_sweep_pallas(cfg, interpret=True)
-    b = make_sharded_dense_sweep_pallas(cfg, mesh, interpret=True)
+    a = make_dense_phase_sweep(cfg, gs)
+    b = make_sharded_dense_sweep(cfg, mesh, gs=gs)
     Wa, Ta = _run(a, X, W0, T0)
     Wb, Tb = _run(b, X, W0, T0)
     assert np.allclose(Wa, Wb, atol=1e-11)
@@ -134,8 +140,8 @@ def test_sharded_tm_projection_matches_single_chip(mesh_shape):
 
 def test_driver_mesh_tm_full_preset_projected():
     """The estimator's full TM preset (both simplex constraints) through
-    the driver on the mesh routes to the sharded projected kernel and
-    matches the single-chip fused run AND the XLA GSPMD mesh path."""
+    the driver on the mesh routes to the sharded dense phase sweep and
+    matches the single-device run AND the XLA GSPMD mesh path."""
     X, _, _ = _problem(n=64, d=48, seed=7)
     kw = dict(k=4, max_iter=3, random_state=0, early_stop=False,
               update_order='phase', reset_topic_method=None,
@@ -152,38 +158,42 @@ def test_driver_mesh_tm_full_preset_projected():
     assert np.allclose(sharded['T'], gspmd['T'], atol=1e-6)
 
 
-def test_sharded_dense_negative_l1_padding_no_ghost_mass():
-    """Negative reg_t_l1 with d off the BD*tp quantum: ghost T columns
-    grown by the GS kernel must be zeroed before the W-phase Gram (the
-    single-chip sweep slices T[:, :d] there) — parity vs make_sweep."""
+@GS
+def test_sharded_dense_negative_l1_padding_no_ghost_mass(gs):
+    """Negative reg_t_l1 with d off the tp quantum: ghost T columns grown
+    by the topic loop must be zeroed before the W-phase Gram — parity vs
+    make_sweep."""
     from rri_nmf_tpu.ops.sweep_xla import make_sweep
-    X, W0, T0 = _problem(n=60, d=50, k=4)   # d=50 pads to 2048 on (4,2)
+    X, W0, T0 = _problem(n=61, d=51, k=4)   # pads to (64, 52) on (4, 2)
     cfg = SweepConfig(k=4, reset_topic_method=None, update_order='phase',
                       reg_t_l1=-0.05, reg_t_l2=0.5,
                       reg_w_l1=-0.02, reg_w_l2=0.5)
     mesh = make_mesh(8, mesh_shape=(4, 2))
     a = make_sweep(cfg)
-    b = make_sharded_dense_sweep_pallas(cfg, mesh, interpret=True)
+    b = make_sharded_dense_sweep(cfg, mesh, gs=gs)
     Wa, Ta = _run(a, X, W0, T0)
     Wb, Tb = _run(b, X, W0, T0)
     assert np.allclose(Wa, Wb, atol=1e-10), np.abs(Wa - Wb).max()
     assert np.allclose(Ta, Tb, atol=1e-10)
 
 
-def test_sharded_tm_gate_budgets_gathered_width():
-    """The TM projected-kernel VMEM gate budgets the all-gathered panel
-    (round_up(d, BD*tp) columns), not the single-chip padding — a config
-    that fits one chip but not the gathered panel must decline (it
-    previously passed the gate and failed at Mosaic compile time)."""
+@pytest.mark.parametrize('k,d', [(768, 6000), (5, 7)])
+def test_sharded_tm_gate_budgets_gathered_width(k, d):
+    """The sharded dense phase sweep covers the projected TM preset at any
+    panel width: the projected T-phase is the XLA loop on gathered rows,
+    with no on-chip panel budget to decline."""
     import dataclasses
-    from rri_nmf_tpu.ops.dense_pallas import supports_dense_pallas
-    cfg = SweepConfig(k=768, reset_topic_method=None, update_order='phase',
+    cfg = SweepConfig(k=k, reset_topic_method=None, update_order='phase',
                       project_T_each_iter=True, t_row_sum=1.0)
-    assert supports_dense_pallas(cfg, d=6000)          # single chip: 59 MB
-    mesh = make_mesh(8, mesh_shape=(1, 8))             # tp = 8
-    cfg8 = dataclasses.replace(cfg, mesh=mesh)
-    # gathered panel pads to round_up(6000, 1024*8) = 8192 cols: 78 MB
-    assert not supports_sharded_dense(cfg8, d=6000)
-    mesh21 = make_mesh(8, mesh_shape=(8, 1))           # tp = 1: same pad
-    cfg1 = dataclasses.replace(cfg, mesh=mesh21)
-    assert supports_sharded_dense(cfg1, d=6000)
+    for shape in [(1, 8), (8, 1)]:
+        mesh = make_mesh(8, mesh_shape=shape)
+        assert supports_dense_phase(dataclasses.replace(cfg, mesh=mesh))
+    if k * d < 1000:
+        X, W0, T0 = _problem(n=24, d=d, k=k, seed=9)
+        mesh = make_mesh(8, mesh_shape=(1, 8))
+        a = make_dense_phase_sweep(cfg, 'xla')
+        b = make_sharded_dense_sweep(cfg, mesh, gs='xla')
+        Wa, Ta = _run(a, X, W0, T0)
+        Wb, Tb = _run(b, X, W0, T0)
+        assert np.allclose(Ta, Tb, atol=1e-11)
+        assert np.allclose(Wa, Wb, atol=1e-11)

@@ -90,13 +90,25 @@ def test_row_only_mesh():
     assert np.allclose(np.array(W1), np.array(Wd), atol=1e-12)
 
 
+def _gspmd_masked_sweep(cfg, mesh):
+    """The masked XLA sweep under GSPMD: inputs placed on the canonical
+    mesh layouts (parallel.mesh.problem_shardings), XLA partitions the
+    program and inserts the collectives."""
+    from rri_nmf_tpu.parallel.mesh import problem_shardings
+    s_X, s_W, s_T, s_M = problem_shardings(mesh, masked=True)
+    sweep = make_sweep(cfg)
+
+    def run(X, W, T, key, r, rk, M):
+        return sweep(jax.device_put(X, s_X), jax.device_put(W, s_W),
+                     jax.device_put(T, s_T), key, r, rk,
+                     jax.device_put(M, s_M))
+    return run
+
+
 @requires_8_devices
 def test_sharded_pallas_masked_sweep():
-    """shard_map'd fused Pallas masked sweep == single-device XLA sweep:
-    per-device kernels with only the reduction vectors psum'd over ICI."""
-    from rri_nmf_tpu.parallel.sharded_pallas import (
-        make_sharded_masked_sweep_pallas)
-    n, d, k = 90, 70, 4
+    """GSPMD masked sweep on the (4, 2) mesh == single-device XLA sweep."""
+    n, d, k = 96, 72, 4
     rng = np.random.RandomState(0)
     X = np.abs(rng.rand(n, k) @ rng.rand(k, d) + 0.01 * rng.rand(n, d))
     M = (rng.rand(n, d) < 0.5).astype(float)
@@ -104,8 +116,7 @@ def test_sharded_pallas_masked_sweep():
     T0 = np.abs(rng.rand(k, d))
     cfg = SweepConfig(k=k, masked=True, reset_topic_method=None,
                       t_row_sum=1.0)
-    mesh = make_mesh(8)
-    sharded = make_sharded_masked_sweep_pallas(cfg, mesh, interpret=True)
+    sharded = _gspmd_masked_sweep(cfg, make_mesh(8))
     single = make_sweep(cfg)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
@@ -122,12 +133,10 @@ def test_sharded_pallas_masked_sweep():
 
 @requires_8_devices
 def test_sharded_pallas_fix_t_masked_inference():
-    """The W-phase-only (fix_T) sharded variant — the RS transform preset
-    minus its resets — matches the single-device XLA sweep (VERDICT r3
-    stretch item 8; reference sklearn_interface.py:144-156)."""
-    from rri_nmf_tpu.parallel.sharded_pallas import (
-        make_sharded_masked_sweep_pallas, supports_sharded_pallas)
-    n, d, k = 90, 70, 4
+    """The fix_T masked sweep — the RS transform preset minus its resets
+    — under GSPMD matches the single-device XLA sweep (reference
+    sklearn_interface.py:144-156)."""
+    n, d, k = 96, 72, 4
     rng = np.random.RandomState(3)
     X = np.abs(rng.rand(n, k) @ rng.rand(k, d) + 0.01 * rng.rand(n, d))
     M = (rng.rand(n, d) < 0.5).astype(float)
@@ -137,9 +146,7 @@ def test_sharded_pallas_fix_t_masked_inference():
     cfg = SweepConfig(k=k, masked=True, fix_T=True,
                       reset_topic_method=None, t_row_sum=1.0,
                       w_row_sum=2.0)
-    assert supports_sharded_pallas(cfg)
-    mesh = make_mesh(8)
-    sharded = make_sharded_masked_sweep_pallas(cfg, mesh, interpret=True)
+    sharded = _gspmd_masked_sweep(cfg, make_mesh(8))
     single = make_sweep(cfg)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
@@ -152,10 +159,6 @@ def test_sharded_pallas_fix_t_masked_inference():
                               jnp.asarray(M))
     np.testing.assert_allclose(np.array(Ts), np.array(Td), atol=1e-12)
     np.testing.assert_allclose(np.array(Ws), np.array(Wd), atol=1e-9)
-    # resets stay excluded on the mesh (global column draw)
-    assert not supports_sharded_pallas(
-        SweepConfig(k=k, masked=True, fix_T=True,
-                    reset_topic_method='random', t_row_sum=1.0))
 
 
 @requires_8_devices
@@ -337,18 +340,10 @@ def test_unaligned_shapes_fall_back_to_axiswise_sharding(caplog):
 
 @requires_8_devices
 def test_sharded_pallas_negative_l1_padding_no_phantom_mass():
-    """The sharded masked sweep's per-coordinate solves ignore the
-    zero-padded tails (and each device's share of them), mirroring the
-    single-device masked-kernel fix. Within this path's support gates
-    the phantom pad mass had no *observable* consumer (sum rescales,
-    scale transfer under regs, and resets are all excluded), so the
-    masks are pre-armed hardening — this pins tight parity against the
-    single-device XLA sweep under negative L1 at a shape where padding
-    dominates every device tile."""
-    from rri_nmf_tpu.ops.sweep_xla import SweepConfig, make_sweep
-    from rri_nmf_tpu.parallel.sharded_pallas import (
-        make_sharded_masked_sweep_pallas)
-    n, d, k = 10, 9, 3
+    """The GSPMD masked sweep under negative L1 on a tiny problem whose
+    per-device tiles are one or two rows: tight parity with the
+    single-device XLA sweep."""
+    n, d, k = 8, 6, 3
     rng = np.random.RandomState(1)
     X = np.abs(rng.rand(n, k) @ rng.rand(k, d))
     M = np.ones((n, d))
@@ -357,8 +352,7 @@ def test_sharded_pallas_negative_l1_padding_no_phantom_mass():
     cfg = SweepConfig(k=k, masked=True, reset_topic_method=None,
                       reg_t_l1=-0.1, reg_t_l2=0.5,
                       reg_w_l1=-0.05, reg_w_l2=0.5)
-    mesh = make_mesh(8)
-    sharded = make_sharded_masked_sweep_pallas(cfg, mesh, interpret=True)
+    sharded = _gspmd_masked_sweep(cfg, make_mesh(8))
     single = make_sweep(cfg)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
@@ -373,30 +367,27 @@ def test_sharded_pallas_negative_l1_padding_no_phantom_mass():
 
 @requires_8_devices
 def test_sharded_masked_skips_repad_when_aligned():
-    """Structural pin of the aligned-shape fast path: when (n, d) already
-    sit on the (BN*dp, BD*tp) mesh quanta the sharded masked sweep must
-    not trace the O(nd) zero-pad (a dynamic_update_slice writing a full
-    (npad, dpad) X/M copy per sweep); off-quanta shapes must (that's the
-    pad doing its job). Same policy as sharded_dense (ADVICE round 2)."""
-    from rri_nmf_tpu.ops.sweep_pallas import BN, BD
-    from rri_nmf_tpu.parallel.sharded_pallas import (
-        make_sharded_masked_sweep_pallas)
+    """Structural pin of the aligned-shape fast path of the sharded dense
+    phase sweep: when (n, d) already sit on the mesh the sweep must not
+    trace the O(nd) zero-pad (a dynamic_update_slice writing a full
+    padded X copy per sweep); off-mesh shapes must (that's the pad doing
+    its job)."""
+    from rri_nmf_tpu.parallel.sharded_dense import make_sharded_dense_sweep
 
     k = 3
     mesh = make_mesh(8)                       # (4, 2) dp x tp
     dp, tp = mesh.devices.shape
-    n_al, d_al = BN * dp, BD * tp
-    cfg = SweepConfig(k=k, masked=True, reset_topic_method=None)
-    sweep = make_sharded_masked_sweep_pallas(cfg, mesh, interpret=True)
+    n_al, d_al = 16 * dp, 16 * tp
+    cfg = SweepConfig(k=k, reset_topic_method=None, update_order='phase')
+    sweep = make_sharded_dense_sweep(cfg, mesh, gs='xla')
 
-    def matrix_dus_shapes(n, d):
+    def matrix_dus_shapes(n, d, n_pad, d_pad):
         args = (jax.ShapeDtypeStruct((n, d), jnp.float32),
                 jax.ShapeDtypeStruct((n, k), jnp.float32),
                 jax.ShapeDtypeStruct((k, d), jnp.float32),
                 jax.ShapeDtypeStruct((2,), jnp.uint32),
                 jax.ShapeDtypeStruct((), jnp.int32),
-                jax.ShapeDtypeStruct((2,), jnp.uint32),
-                jax.ShapeDtypeStruct((n, d), jnp.float32))
+                jax.ShapeDtypeStruct((2,), jnp.uint32))
         jaxpr = jax.make_jaxpr(sweep)(*args)
         found = []
 
@@ -405,7 +396,7 @@ def test_sharded_masked_skips_repad_when_aligned():
                 if eqn.primitive.name in ('scatter',
                                           'dynamic_update_slice'):
                     for ov in eqn.outvars:
-                        if tuple(ov.aval.shape) == (n_al, d_al):
+                        if tuple(ov.aval.shape) == (n_pad, d_pad):
                             found.append(tuple(ov.aval.shape))
                 for v in eqn.params.values():
                     if hasattr(v, 'jaxpr'):
@@ -419,9 +410,9 @@ def test_sharded_masked_skips_repad_when_aligned():
         return found
 
     # aligned: no global-matrix-sized pad writes anywhere in the trace
-    assert matrix_dus_shapes(n_al, d_al) == []
-    # off-quanta: the X and M pads must appear, writing (n_al, d_al)
-    off = matrix_dus_shapes(n_al - 8, d_al - 8)
+    assert matrix_dus_shapes(n_al, d_al, n_al, d_al) == []
+    # off the mesh: the X pad must appear, writing (n_al, d_al)
+    off = matrix_dus_shapes(n_al - 1, d_al - 1, n_al, d_al)
     assert (n_al, d_al) in off
 
 
@@ -460,9 +451,7 @@ def test_sharded_resets_multiblock_per_device():
 def test_distributed_blockwise_objective_parity():
     """The mesh residual objective (ops/accel.make_residual_obj,
     distributed=True) runs blockwise inside a shard_map — per-device
-    temps stay at block size instead of an X-sized f32 tile (measured
-    24.2 GiB/device at the 1M x 100k pod shape,
-    benchmarks/results_round4_pod_scale_compile.json). Parity vs the
+    temps stay at block size instead of an X-sized f32 tile. Parity vs the
     single-device blockwise form must be exact summation-order-level
     f64: dense, masked, quantized int16 X, and the one-piece fallback
     for shapes that do not tile the mesh."""

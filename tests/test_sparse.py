@@ -123,7 +123,7 @@ def test_sparse_gs_kernels_match_xla_gs():
     cfg = SweepConfig(k=5, reset_topic_method=None, update_order='phase',
                       reg_t_l2=0.05)
     a = make_sparse_sweep(cfg)
-    b = make_sparse_sweep(cfg, gs_kernels=True, interpret=True)
+    b = make_sparse_sweep(cfg, gs='interpret')
     Xb = to_bcoo(scipy.sparse.csr_matrix(Xd), jnp.asarray(Xd).dtype)
     key = jax.random.PRNGKey(0)
     r = jnp.asarray(0, jnp.int32)
@@ -137,7 +137,7 @@ def test_sparse_gs_kernels_match_xla_gs():
 
 
 def test_sparse_gemm_dtype_bf16_descends():
-    """gemm_dtype=bfloat16 (the TPU fast contraction path) still descends
+    """gemm_dtype=bfloat16 (the reduced-precision contraction path) still descends
     monotonically; values track the f32 path to bf16-input-rounding
     accuracy."""
     Xd, W0, T0 = _problem(seed=5)

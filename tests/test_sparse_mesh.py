@@ -177,3 +177,46 @@ def test_sharded_sparse_fix_T_transform():
     sharded = nmf(X, mesh=mesh, **kw)
     assert np.allclose(sharded['T'], np.maximum(T0, 0))
     assert np.allclose(single['W'], sharded['W'], atol=1e-11)
+
+
+def _sweep_builders():
+    """(name, builder) for every sweep nmf() routes a phase-order fit to;
+    each builder takes a SweepConfig and returns (sweep, args)."""
+    from rri_nmf_tpu.ops.dense_phase import make_dense_phase_sweep
+    from rri_nmf_tpu.ops.sweep_sparse import make_sparse_sweep
+    from rri_nmf_tpu.ops.sweep_xla import make_sweep
+    from rri_nmf_tpu.parallel.sharded_dense import make_sharded_dense_sweep
+    Xs, Xd = _sparse_problem(n=16, d=8, k=2)
+    W = jnp.ones((16, 2))
+    T = jnp.ones((2, 8))
+    key = jax.random.PRNGKey(0)
+    tail = (key, jnp.asarray(0, jnp.int32), key)
+    mesh = make_mesh(8, mesh_shape=(8, 1))
+    return {
+        'make_sweep': lambda c: (make_sweep(c), (jnp.asarray(Xd), W, T)),
+        'dense_phase': lambda c: (make_dense_phase_sweep(c, 'xla'),
+                                  (jnp.asarray(Xd), W, T)),
+        'sparse': lambda c: (make_sparse_sweep(c), (to_bcoo(Xs), W, T)),
+        'sharded_dense': lambda c: (make_sharded_dense_sweep(c, mesh),
+                                    (jnp.asarray(Xd), W, T)),
+        'sharded_sparse': lambda c: (
+            make_sharded_sparse_sweep(c, mesh),
+            (partition_coo(Xs, mesh), W, T)),
+    }, tail
+
+
+@pytest.mark.parametrize('name', ['make_sweep', 'dense_phase', 'sparse',
+                                  'sharded_dense', 'sharded_sparse'])
+def test_sweeps_honour_matmul_precision(name):
+    """matmul_precision='highest' reaches the dots of every phase-order
+    sweep (on a GPU the default float32 dot runs in TF32; a sweep that
+    ignored the setting would silently fit at that precision)."""
+    builders, tail = _sweep_builders()
+    cfg = SweepConfig(k=2, update_order='phase', reset_topic_method=None,
+                      matmul_precision='highest')
+    sweep, args = builders[name](cfg)
+    text = sweep.lower(*args, *tail).as_text()
+    assert 'HIGHEST' in text
+    plain = SweepConfig(k=2, update_order='phase', reset_topic_method=None)
+    sweep, args = builders[name](plain)
+    assert 'HIGHEST' not in sweep.lower(*args, *tail).as_text()

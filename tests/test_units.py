@@ -1,6 +1,6 @@
 """Direct unit tests for small shared helpers that were previously only
 exercised through the driver (reset row/col builders, the shared
-drifted-row reprojection, debug validation, VMEM gates, dtype
+drifted-row reprojection, debug validation, device budgets, dtype
 resolution). All CPU-fast: no sweep compiles."""
 
 import numpy as np
@@ -101,13 +101,30 @@ def test_validate_factors_catches_violations():
         validate_factors(W, T, t_row_sum=2.0, project_T_each_iter=True)
 
 
-def test_tm_proj_fits_boundary():
-    from rri_nmf_tpu.ops.dense_pallas import TM_PROJ_VMEM_BUDGET, \
-        tm_proj_fits
+def test_tm_proj_fits_boundary(monkeypatch):
+    """Memory budgets come from the device: the CPU backend reports the
+    host's RAM; an accelerator without a ``bytes_limit`` is an error, not
+    a guessed default."""
+    from rri_nmf_tpu.ops import capability
 
-    assert tm_proj_fits(128, 8192)
-    # find a d that exceeds the budget and check the gate flips
-    assert not tm_proj_fits(512, TM_PROJ_VMEM_BUDGET)   # way over
+    assert capability.device_bytes_limit() > 0
+    assert capability.memory_budget_bytes(0.25) == \
+        0.25 * capability.device_bytes_limit()
+
+    class _Dev:
+        platform = 'gpu'
+
+        def __init__(self, stats):
+            self._stats = stats
+
+        def memory_stats(self):
+            return self._stats
+
+    assert capability.device_bytes_limit(_Dev({'bytes_limit': 1234})) == 1234
+    with pytest.raises(RuntimeError, match='no memory limit'):
+        capability.device_bytes_limit(_Dev({}))
+    with pytest.raises(RuntimeError, match='no memory limit'):
+        capability.device_bytes_limit(_Dev(None))
 
 
 def test_resolve_mixed_dtypes():
